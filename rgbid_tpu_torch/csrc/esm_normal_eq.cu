@@ -1,0 +1,304 @@
+// ESM residuals + Student-t weights + 6x6 normal equations, one launch per
+// IRLS iteration.
+//
+// Replaces: rgbid_tpu/ops/pallas_kernels.py, _esm_kernel (entry
+// esm_residuals_and_normal_eq_pallas). On the TPU the warp
+// (transform_project) and the 4-corner bilinear gather stayed in XLA and
+// the kernel read pre-gathered planes; here each thread does all of it for
+// one template pixel: project the template point through T, gather the
+// C-channel current stack (C = 3, 5 or 7), form both residuals, the
+// occlusion-gated Student-t weights, the warp and exact inverse-depth
+// prediction Jacobians with ESM gradient averaging, and the 32 per-pixel
+// terms (21 upper-triangle H, 6 b, error, inlier, valid, 2 lagged-sigma
+// statistics). A block reduces them (warp shuffles, then shared memory)
+// into one row of (n_blocks, 32) partials; a one-block second pass sums the
+// rows in a fixed order and writes the per-pixel-normalized result.
+//
+// What bounds it on this card: at the tracker's sizes (at most 77k
+// template pixels, ~10 planes, ~3 MB read per level-0 iteration) the work
+// is a few microseconds of bandwidth, so the two launches' latency and the
+// gather's scattered reads bound it, not bytes or FLOPs. The design keeps
+// everything for an iteration in one pass over the template (no
+// intermediate planes in device memory) and reads T and the sigmas from
+// device memory, so the IRLS loop never waits on the host.
+//
+// Determinism: no atomics. Every sum is taken in a fixed order, so the
+// same input gives bit-identical output from run to run.
+//
+// Float order: the per-pixel arithmetic follows the plain PyTorch version
+// (ops/gauss_newton.py) operation by operation and the build disables FMA
+// contraction (-fmad=false), so the counts (valid pixels, inliers) equal
+// the plain version's exactly and the sums differ only by summation order.
+
+#include <cuda_runtime.h>
+
+// Must match EsmParams in ops/_build.py field by field.
+struct EsmParams {
+  int n;               // template pixels (row-major template planes)
+  int h, w;            // current-stack height and width
+  int use_geometric;   // inverse-depth channel enters H, b and the error
+  int occlusion_gate;  // gate the weights on the inverse-depth residual
+  float fx, fy, cx, cy;
+  float nu;            // Student-t degrees of freedom
+  float nu1;           // nu + 1
+  float gate2;         // gate_sigmas^2 (inlier test)
+  float occ_a;         // (2 gate_sigmas)^2 (occlusion-gate slope)
+  float occ_b;         // 0.05^2 (occlusion-gate floor)
+  float cap2;          // squared occlusion-gate cap; 0 = uncapped
+  float umax, vmax;    // w - 1.001, h - 1.001
+};
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSums = 32;
+
+// torch.clamp semantics: NaN passes through.
+__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
+__device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
+
+__device__ __forceinline__ void block_reduce(const float (&v)[kSums], float* smem,
+                                             float* out_row) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) {
+    float x = v[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+    if (lane == 0) smem[warp * kSums + k] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < kSums) {
+    float s = 0.f;
+    for (int i = 0; i < kWarps; ++i) s += smem[i * kSums + threadIdx.x];
+    out_row[threadIdx.x] = s;
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+esm_kernel(EsmParams p, const float* __restrict__ T, const float* __restrict__ s2i_p,
+           const float* __restrict__ s2x_p, const float* __restrict__ kf_int,
+           const float* __restrict__ px, const float* __restrict__ py,
+           const float* __restrict__ pz, const float* __restrict__ kf_mask,
+           const float* __restrict__ kf_grads, const float* __restrict__ cur,
+           float* __restrict__ partials) {
+  __shared__ float smem[kWarps * kSums];
+  float acc[kSums];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
+
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < p.n) {
+    const float s2i = *s2i_p;
+    const float s2x = *s2x_p;
+    const float Px = px[i], Py = py[i], Pz = pz[i];
+
+    // transform_project (ops/warp.py)
+    const float xp = T[0] * Px + T[1] * Py + T[2] * Pz + T[3];
+    const float yp = T[4] * Px + T[5] * Py + T[6] * Pz + T[7];
+    const float zp = T[8] * Px + T[9] * Py + T[10] * Pz + T[11];
+    const float front = zp > 1e-6f ? 1.f : 0.f;
+    const float rho = 1.0f / clamp_min(zp, 1e-6f);
+    const float up = p.fx * xp * rho + p.cx;
+    const float vp = p.fy * yp * rho + p.cy;
+
+    // _corner_weights: clip to [0, w - 1.001], floor, mask-product corners.
+    const float inb = (up >= 0.f && up <= p.umax && vp >= 0.f && vp <= p.vmax) ? 1.f : 0.f;
+    const float uc = clamp_max(clamp_min(up, 0.f), p.umax);
+    const float vc = clamp_max(clamp_min(vp, 0.f), p.vmax);
+    // A NaN coordinate converts to 0; the clamp keeps every read in range.
+    const int u0 = min(max(static_cast<int>(floorf(uc)), 0), p.w - 1);
+    const int v0 = min(max(static_cast<int>(floorf(vc)), 0), p.h - 1);
+    const float fu = uc - static_cast<float>(u0);
+    const float fv = vc - static_cast<float>(v0);
+    const int u1 = min(u0 + 1, p.w - 1);
+    const int v1 = min(v0 + 1, p.h - 1);
+    const int hw = p.h * p.w;
+    const int i00 = v0 * p.w + u0, i01 = v0 * p.w + u1;
+    const int i10 = v1 * p.w + u0, i11 = v1 * p.w + u1;
+    const float w00 = (1.f - fu) * (1.f - fv);
+    const float w01 = fu * (1.f - fv);
+    const float w10 = (1.f - fu) * fv;
+    const float w11 = fu * fv;
+    float smp[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float* pl = cur + c * hw;
+      smp[c] = pl[i00] * w00 + pl[i01] * w01 + pl[i10] * w10 + pl[i11] * w11;
+    }
+    const float* mk = cur + 2 * hw;
+    const float mask_ok = mk[i00] * mk[i01] * mk[i10] * mk[i11];
+    const float valid = kf_mask[i] * front * inb * mask_ok;
+    const float r_i = (smp[0] - kf_int[i]) * valid;
+    const float r_x = (smp[1] - rho) * valid;
+
+    // Student-t weights; the occlusion gate touches the weights only.
+    const float w0i = (1.0f / (r_i * r_i / s2i + p.nu)) * p.nu1;
+    const float w0x = (1.0f / (r_x * r_x / s2x + p.nu)) * p.nu1;
+    float w_i, w_x;
+    if (p.occlusion_gate && p.use_geometric) {
+      float thresh = p.occ_a * s2x + p.occ_b;
+      if (p.cap2 > 0.f) thresh = clamp_max(thresh, p.cap2);
+      const float w_gate = (r_x * r_x <= thresh) ? 1.f : 0.f;
+      w_i = w0i * valid * w_gate / s2i;
+      w_x = w0x * valid * w_gate / s2x;
+    } else {
+      w_i = w0i * valid / s2i;
+      w_x = w0x * valid / s2x;
+    }
+
+    // Warp Jacobian at the template point; exact prediction Jacobian.
+    const float iz = 1.0f / clamp_min(Pz, 1e-6f);
+    const float iz2 = iz * iz;
+    const float nfx = -p.fx, nfy = -p.fy;
+    const float ju[6] = {p.fx * iz,
+                         0.f,
+                         nfx * Px * iz2,
+                         nfx * Px * Py * iz2,
+                         p.fx * (Px * Px * iz2 + 1.0f),
+                         nfx * Py * iz};
+    const float jv[6] = {0.f,
+                         p.fy * iz,
+                         nfy * Py * iz2,
+                         nfy * (Py * Py * iz2 + 1.0f),
+                         p.fy * Px * Py * iz2,
+                         p.fy * Px * iz};
+    const float r20 = T[8], r21 = T[9], r22 = T[10];
+    const float nrho2 = -(rho * rho);
+    const float jr[6] = {nrho2 * r20,
+                         nrho2 * r21,
+                         nrho2 * r22,
+                         nrho2 * (Py * r22 - Pz * r21),
+                         nrho2 * (Pz * r20 - Px * r22),
+                         nrho2 * (Px * r21 - Py * r20)};
+    const float* g = kf_grads;
+    float gxi, gyi, gxx, gyx;
+    if (C >= 7) {
+      gxi = (g[i] + smp[3 % C]) * 0.5f;
+      gyi = (g[p.n + i] + smp[4 % C]) * 0.5f;
+      gxx = (g[2 * p.n + i] + smp[5 % C]) * 0.5f;
+      gyx = (g[3 * p.n + i] + smp[6 % C]) * 0.5f;
+    } else if (C >= 5) {
+      gxi = (g[i] + smp[3 % C]) * 0.5f;
+      gyi = (g[p.n + i] + smp[4 % C]) * 0.5f;
+      gxx = g[2 * p.n + i];
+      gyx = g[3 * p.n + i];
+    } else {
+      gxi = g[i];
+      gyi = g[p.n + i];
+      gxx = g[2 * p.n + i];
+      gyx = g[3 * p.n + i];
+    }
+    float Ji[6], Jx[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      Ji[k] = gxi * ju[k] + gyi * jv[k];
+      Jx[k] = gxx * ju[k] + gyx * jv[k] - jr[k];
+    }
+
+    int t = 0;
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+#pragma unroll
+      for (int c = a; c < 6; ++c) {
+        float s = w_i * Ji[a] * Ji[c];
+        if (p.use_geometric) s = s + w_x * Jx[a] * Jx[c];
+        acc[t++] = s;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      float s = w_i * Ji[a] * r_i;
+      if (p.use_geometric) s = s + w_x * Jx[a] * r_x;
+      acc[21 + a] = s;
+    }
+    float e = w_i * r_i * r_i;
+    if (p.use_geometric) e = e + w_x * r_x * r_x;
+    acc[27] = e;
+    acc[28] = valid * ((r_i * r_i < p.gate2 * s2i) ? 1.f : 0.f);
+    acc[29] = valid;
+    acc[30] = valid * w0i * r_i * r_i;
+    acc[31] = valid * w0x * r_x * r_x;
+  }
+  block_reduce(acc, smem, partials + blockIdx.x * kSums);
+}
+
+// Sums the (n_blocks, 32) partials in a fixed order and writes
+// out[0:36] H (6x6, per valid pixel), out[36:42] b, out[42] sigma2_int,
+// out[43] sigma2_xi, out[44] error, out[45] n_valid, out[46] inlier_frac.
+__global__ void __launch_bounds__(kThreads)
+esm_finalize(const float* __restrict__ partials, int n_blocks,
+             const float* __restrict__ s2x_in, int use_geometric, float* __restrict__ out) {
+  __shared__ float part[kWarps][kSums];
+  __shared__ float sums[kSums];
+  const int k = threadIdx.x & 31;
+  const int g = threadIdx.x >> 5;
+  float s = 0.f;
+  for (int b = g; b < n_blocks; b += kWarps) s += partials[b * kSums + k];
+  part[g][k] = s;
+  __syncthreads();
+  if (threadIdx.x < kSums) {
+    float tot = 0.f;
+    for (int j = 0; j < kWarps; ++j) tot += part[j][threadIdx.x];
+    sums[threadIdx.x] = tot;
+  }
+  __syncthreads();
+  const float n_valid = sums[29];
+  const float inv_n = 1.0f / clamp_min(n_valid, 1.f);
+  const int t = threadIdx.x;
+  if (t < 36) {
+    const int a = min(t / 6, t % 6), c = max(t / 6, t % 6);
+    out[t] = sums[a * 6 - a * (a - 1) / 2 + (c - a)] * inv_n;
+  } else if (t < 42) {
+    out[t] = sums[21 + (t - 36)] * inv_n;
+  } else if (t == 42) {
+    out[t] = clamp_min(sums[30] * inv_n, 1e-12f);
+  } else if (t == 43) {
+    out[t] = use_geometric ? clamp_min(sums[31] * inv_n, 1e-12f) : *s2x_in;
+  } else if (t == 44) {
+    out[t] = sums[27] * inv_n;
+  } else if (t == 45) {
+    out[t] = n_valid;
+  } else if (t == 46) {
+    out[t] = sums[28] * inv_n;
+  } else if (t == 47) {
+    out[t] = 0.f;
+  }
+}
+
+}  // namespace
+
+extern "C" int esm_normal_eq_launch(EsmParams p, int channels, const float* T,
+                                    const float* s2i, const float* s2x, const float* kf_int,
+                                    const float* px, const float* py, const float* pz,
+                                    const float* kf_mask, const float* kf_grads,
+                                    const float* cur, float* partials, float* out,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_blocks = (p.n + kThreads - 1) / kThreads;
+  if (n_blocks > 0) {
+    switch (channels) {
+      case 3:
+        esm_kernel<3><<<n_blocks, kThreads, 0, st>>>(p, T, s2i, s2x, kf_int, px, py, pz,
+                                                      kf_mask, kf_grads, cur, partials);
+        break;
+      case 5:
+        esm_kernel<5><<<n_blocks, kThreads, 0, st>>>(p, T, s2i, s2x, kf_int, px, py, pz,
+                                                      kf_mask, kf_grads, cur, partials);
+        break;
+      case 7:
+        esm_kernel<7><<<n_blocks, kThreads, 0, st>>>(p, T, s2i, s2x, kf_int, px, py, pz,
+                                                      kf_mask, kf_grads, cur, partials);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  esm_finalize<<<1, kThreads, 0, st>>>(partials, n_blocks, s2x, p.use_geometric, out);
+  return static_cast<int>(cudaGetLastError());
+}

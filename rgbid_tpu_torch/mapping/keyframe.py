@@ -1,0 +1,164 @@
+"""Keyframe state: device tensors + host metadata (Keyframe struct, K10).
+
+Counterpart of ``rgbid_tpu/mapping/keyframe.py:25-276`` for the ESM
+template layout (4 gradient planes per level).
+
+``jac_dtype="bf16"`` (the config default) keeps the JAX package's numbers:
+the gradient planes are rounded to bfloat16 precision where the reference
+stores them as bfloat16, but they are held (and read by the kernels) as
+float32.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import image
+from ..tracking.frames import FrameLevel, KeyframeLevel
+
+
+def round_jac(x: torch.Tensor, jac_dtype: str) -> torch.Tensor:
+    """Round template gradient planes to the configured storage precision."""
+    if jac_dtype == "bf16":
+        return x.to(torch.bfloat16).to(torch.float32)
+    return x
+
+
+class DeviceKeyframe(NamedTuple):
+    """Device-resident keyframe state.
+
+    The template levels carry the CONFIRMED mask (hits >= confirm_hits);
+    ``mask_full`` is every pixel with a depth estimate, including
+    provisional claims, and is what fusion refines. ``fused_count`` is a
+    host integer: it advances deterministically (every kept frame), so the
+    fusion cadence and rebuild schedule cost no device read."""
+
+    levels: Tuple[KeyframeLevel, ...]
+    var: torch.Tensor  # (H, W) level-0 inverse-depth variance
+    fused_count: int
+    hits: torch.Tensor  # (H, W) observation-support counts
+    mask_full: torch.Tensor  # (H, W) full estimate mask
+
+
+def _template_levels(int_pyr, xi_pyr, mask_pyr, jac_dtype: str) -> Tuple[KeyframeLevel, ...]:
+    out = []
+    for l in range(len(int_pyr)):
+        gx_i, gy_i = image.gradients_unmasked(int_pyr[l])
+        gx_x, gy_x = image.gradients(xi_pyr[l], mask_pyr[l])
+        jac = round_jac(torch.stack([gx_i, gy_i, gx_x, gy_x]), jac_dtype)
+        out.append(KeyframeLevel(int_pyr[l], xi_pyr[l], mask_pyr[l], jac))
+    return tuple(out)
+
+
+def create_device_keyframe(
+    frame: Tuple[FrameLevel, ...], cfg, jac_dtype: str = "f32"
+) -> DeviceKeyframe:
+    """Promote a preprocessed frame to a fresh keyframe (variance = sensor)."""
+    levels = _template_levels(
+        [l.intensity for l in frame], [l.xi for l in frame], [l.mask for l in frame],
+        jac_dtype,
+    )
+    mask0 = frame[0].mask
+    var0 = torch.where(
+        mask0 > 0,
+        torch.full_like(mask0, cfg.sensor_sigma_xi**2),
+        torch.full_like(mask0, cfg.max_variance),
+    )
+    return DeviceKeyframe(
+        levels=levels,
+        var=var0,
+        fused_count=0,
+        hits=float(cfg.confirm_hits) * mask0,
+        mask_full=mask0,
+    )
+
+
+def _rebuild_level0(old: KeyframeLevel, xi0, mask0, jac_dtype: str) -> KeyframeLevel:
+    """Finest-level template refresh: intensity (and its gradients) never
+    change under fusion, so only the two xi-gradient planes are recomputed."""
+    gx_x, gy_x = image.gradients(xi0, mask0)
+    jac = torch.cat([old.jac[:2], round_jac(torch.stack([gx_x, gy_x]), jac_dtype)], dim=0)
+    return KeyframeLevel(old.intensity, xi0, mask0, jac)
+
+
+def rebuild_after_fusion(
+    kf: DeviceKeyframe,
+    xi0: torch.Tensor,
+    var0: torch.Tensor,
+    mask0: torch.Tensor,
+    hits: torch.Tensor,
+    jac_dtype: str = "f32",
+    coarse_every: int = 1,
+    confirm_hits: float = 2.0,
+    fine_every: int = 1,
+) -> DeviceKeyframe:
+    """Rebuild the tracking template from the fused level-0 inverse depth.
+
+    The template is gated to confirmed pixels (hits >= confirm_hits).
+    Level 0 is refreshed every ``fine_every`` fused
+    frames (its xi/mask always); the coarse xi pyramid and gradients every
+    ``coarse_every`` fused frames. The schedule is a host branch on the
+    host-side ``fused_count``."""
+    count = kf.fused_count + 1
+    tmask = mask0 * (hits >= confirm_hits).to(torch.float32)
+    old0 = kf.levels[0]
+    if fine_every <= 1 or count % fine_every == 0:
+        new0 = _rebuild_level0(old0, xi0, tmask, jac_dtype)
+    else:
+        new0 = KeyframeLevel(old0.intensity, xi0, tmask, old0.jac)
+    n_levels = len(kf.levels)
+    if n_levels == 1:
+        coarse: Tuple[KeyframeLevel, ...] = ()
+    elif coarse_every <= 1 or count % coarse_every == 0:
+        xi_pyr, mask_pyr = image.build_pyramid(xi0, tmask, n_levels)
+        int_pyr = [l.intensity for l in kf.levels]
+        coarse = _template_levels(int_pyr, xi_pyr, mask_pyr, jac_dtype)[1:]
+    else:
+        coarse = tuple(kf.levels[1:])
+    return DeviceKeyframe(
+        levels=(new0,) + coarse, var=var0, fused_count=count, hits=hits, mask_full=mask0
+    )
+
+
+@dataclass
+class Keyframe:
+    """Host-side keyframe record (metadata + finalized artifacts)."""
+
+    kf_id: int
+    timestamp: float
+    T_wk: np.ndarray  # camera-to-world pose
+    rgb: np.ndarray  # founding frame's image, (H, W, 3) or gray (H, W) u8
+    cloud: Optional[np.ndarray] = None  # (N, 6) xyz+rgb in keyframe coordinates
+
+
+def extract_cloud(
+    xi0: np.ndarray,
+    mask0: np.ndarray,
+    var0: np.ndarray,
+    rgb: np.ndarray,
+    intr,
+    max_sigma: float = 0.05,
+    grid_step: int = 1,
+) -> np.ndarray:
+    """K10: backproject the fused keyframe map -> (N, 6) xyz+rgb float32
+    (host numpy, after the JAX package's function). The planes and the
+    (H, W, 3) or gray (H, W) u8 image are pre-strided by ``grid_step``."""
+    h, w = xi0.shape
+    u, v = np.meshgrid(
+        np.arange(w, dtype=np.float32) * grid_step,
+        np.arange(h, dtype=np.float32) * grid_step,
+    )
+    keep = (mask0 > 0) & (np.sqrt(np.maximum(var0, 0.0)) < max_sigma) & (xi0 > 1e-6)
+    z = 1.0 / np.maximum(xi0, 1e-6)
+    x = (u - intr.cx) / intr.fx * z
+    y = (v - intr.cy) / intr.fy * z
+    c = rgb.astype(np.float32) * (1.0 / 255.0)
+    if c.ndim == 2:
+        c = np.repeat(c[..., None], 3, axis=-1)
+    pts = np.stack([x[keep], y[keep], z[keep], c[..., 0][keep], c[..., 1][keep],
+                    c[..., 2][keep]], axis=1)
+    return pts.astype(np.float32)
