@@ -10,9 +10,13 @@ otherwise. Phases, each printing its own lines:
 2. build: nvcc builds csrc/*.cu from this checkout (timed);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes the main path gives it, with the stated tolerances;
-4. main path: SlamSystem over a synthetic VGA sequence with known ground
-   truth; launch counts, keyframe switches, finite poses, ATE bound,
-   ms/frame, host reads per frame, and run-to-run bit-identity of poses;
+4. main paths: SlamSystem over a synthetic VGA sequence with known ground
+   truth, three times: the ESM slice configuration, then the
+   inverse-compositional (IC) configuration with lagged and then exact
+   Student-t scales. Each run checks launch counts, keyframe switches,
+   lost frames, finite poses, its ATE bound, host reads against the syncs
+   PyTorch reports, and run-to-run bit-identity of poses, and prints
+   ms/frame;
 5. times: each kernel and its plain version, with CUDA events and with
    torch.profiler (last, because profiling slows later launches).
 
@@ -37,16 +41,17 @@ import rgbid_tpu_torch as port
 from rgbid_tpu_torch.core.camera import TUM_FR1, Intrinsics
 from rgbid_tpu_torch.eval import absolute_trajectory_error
 from rgbid_tpu_torch.mapping import fusion
-from rgbid_tpu_torch.ops import _build, kernels
+from rgbid_tpu_torch.ops import _build, gauss_newton, kernels
 from rgbid_tpu_torch.ops.gauss_newton import ic_update
 from rgbid_tpu_torch.tracking.step import ProcessFrame, frame_pyramid, pack_frame
 from rgbid_tpu_torch.tracking.tracker import template_level
 
 N_FRAMES = 36
-# ATE bound of the main-path run: max(2 x the CPU run's ATE, 5 mm). The
+# ATE bound of every main-path run: max(2 x the CPU run's ATE, 5 mm). The
 # port tracks this same sequence on the CPU in
-# tests/test_torch_slice.py::test_chip_smoke_scene_on_cpu at 0.14 mm ATE
-# (and asserts that figure stays under half of this bound).
+# tests/test_torch_slice.py::test_chip_smoke_scene_on_cpu (ESM, 0.14 mm)
+# and tests/test_torch_ic.py::test_chip_smoke_scene_on_cpu_ic (IC, lagged
+# and exact), and asserts each ATE stays under half of this bound.
 ATE_BOUND_M = 5e-3
 
 # ---------------------------------------------------------------------------
@@ -163,6 +168,14 @@ def slice_config():
     )
 
 
+def ic_config(sigma_mode: str):
+    """The inverse-compositional configuration (consensus left at its
+    default: the JAX package runs it only in ESM mode)."""
+    return port.SlamConfig().override(
+        **{"tracking.jacobian": "ic", "backend.enabled": False, "tracking.sigma_mode": sigma_mode}
+    )
+
+
 def sequence_ate(gt, est) -> float:
     gt0 = np.linalg.inv(gt[0])
     return absolute_trajectory_error([gt0 @ T for T in gt], est)["rmse"]
@@ -240,9 +253,10 @@ def _scaled_err(k: torch.Tensor, p: torch.Tensor):
     return float(d.max()), float((d / tol).max())
 
 
-def _esm_inputs(intr: Intrinsics, cfg, geo_min: int = 0):
-    """Keyframe + current pyramid on the card from two frames of the scene,
-    and the ground-truth relative pose as the linearization point."""
+def _frame_pair(intr: Intrinsics, cfg, geo_min: int = 0):
+    """Keyframe + current pyramid on the card from two frames of the scene
+    (ESM or IC templates, as ``cfg`` says), and the ground-truth relative
+    pose as the linearization point."""
     scene = make_scene(0)
     rng = np.random.default_rng(5)
     gt = camera_path(N_FRAMES)
@@ -256,15 +270,28 @@ def _esm_inputs(intr: Intrinsics, cfg, geo_min: int = 0):
     return kf, cur, T, step.intrs
 
 
+ODD_INTR = Intrinsics(fx=517.3, fy=516.5, cx=319.6, cy=239.8, width=641, height=481)
+
+
+def _solver_delta(T, k, p, damping) -> float:
+    """max |step(kernel) - step(plain)| of the solver: what the tracker consumes."""
+    _, dk = ic_update(T, k.H, k.b, damping, k.n_valid)
+    _, dp = ic_update(T, p.H, p.b, damping, p.n_valid)
+    return float((dk - dp).abs().max())
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs() / b.abs().clamp(min=1e-30))
+
+
 def phase_kernels(cfg):
     """Each kernel vs its plain version at the main path's shapes."""
     tc = cfg.tracking
     ok = True
     records = {}
-    vga = _esm_inputs(TUM_FR1, cfg)
-    five = _esm_inputs(TUM_FR1, cfg, geo_min=2)
-    odd_intr = Intrinsics(fx=517.3, fy=516.5, cx=319.6, cy=239.8, width=641, height=481)
-    odd = _esm_inputs(odd_intr, cfg)
+    vga = _frame_pair(TUM_FR1, cfg)
+    five = _frame_pair(TUM_FR1, cfg, geo_min=2)
+    odd = _frame_pair(ODD_INTR, cfg)
     s2i = torch.full((), 0.01, device="cuda")
     s2x = torch.full((), 0.0025, device="cuda")
     cases = [
@@ -300,10 +327,7 @@ def phase_kernels(cfg):
             float(((k.sigma2_int - p.sigma2_int).abs() / p.sigma2_int)),
             float(((k.sigma2_xi - p.sigma2_xi).abs() / p.sigma2_xi)),
         )
-        # The update the solver takes from each: what the tracker consumes.
-        Tk, dk = ic_update(T, k.H, k.b, tc.damping, k.n_valid)
-        Tp, dp = ic_update(T, p.H, p.b, tc.damping, p.n_valid)
-        ddelta = float((dk - dp).abs().max())
+        ddelta = _solver_delta(T, k, p, tc.damping)
         good = sH <= 1.0 and sb <= 1.0 and exact and scal <= 1e-4 and ddelta <= 1e-6
         ok &= good
         esm_abs = max(esm_abs, eH, eb)
@@ -356,21 +380,144 @@ def phase_kernels(cfg):
     return ok, records, timing
 
 
+def phase_ic_kernels():
+    """The two IC kernels vs their plain versions at the IC path's shapes:
+    each alone with the same scales in (VGA L0-L3 with the template stride,
+    the geometric channel on and off, the field bf16-rounded and f32, the
+    odd 641x481 camera), then the exact-mode chain."""
+    cfg = ic_config("lagged")
+    tc = cfg.tracking
+    ok = True
+    vga = _frame_pair(TUM_FR1, cfg)  # jac_dtype "bf16": bf16-rounded field
+    vga32 = _frame_pair(TUM_FR1, cfg.override(**{"tracking.jac_dtype": "f32"}))
+    odd = _frame_pair(ODD_INTR, cfg)
+    s2i = torch.full((), 0.01, device="cuda")
+    s2x = torch.full((), 0.0025, device="cuda")
+    strides = tuple(tc.template_stride) + (1,) * tc.levels
+    cases = [
+        # (label, inputs, level, use_geometric)
+        ("L0 bf16 geo", vga, 0, True),
+        ("L0 bf16 geo off", vga, 0, False),
+        ("L1 bf16 geo", vga, 1, True),
+        ("L2 bf16 geo", vga, 2, True),
+        ("L3 bf16 geo", vga, 3, True),
+        ("L3 bf16 geo off", vga, 3, False),
+        ("L0 f32 geo", vga32, 0, True),
+        ("L1 f32 geo off", vga32, 1, False),
+        ("odd L0 bf16 geo", odd, 0, True),
+        ("odd L1 bf16 geo", odd, 1, True),
+    ]
+
+    def level_args(inputs, lvl):
+        kf, cur, T, intrs = inputs
+        kl, pts = template_level(kf.levels[lvl], intrs[lvl], strides[lvl])
+        cl = cur[lvl]
+        return T, (T, kl.intensity, pts, kl.mask, kl.jac, cl.intensity, cl.xi, cl.mask,
+                   intrs[lvl], tc.student_t_nu)
+
+    n_abs, n_scaled, s_abs = 0.0, 0.0, 0.0
+    for label, inputs, lvl, geo in cases:
+        T, a = level_args(inputs, lvl)
+        # Normal-equation kernel alone, lagged, the same scales in: counts exact.
+        k = kernels.ic_normal_eq(*a, s2i, s2x, geo, tc.gate_sigmas, True)
+        p = gauss_newton.normal_eq_plain(*a, s2i, s2x, geo, tc.gate_sigmas, True)
+        # Sigma kernel alone: sums to 1e-5 relative, count exact.
+        ks = kernels.ic_sigma_stats(*a[:4], *a[5:], s2i, s2x, geo)
+        ps = gauss_newton.sigma_stats_plain(*a[:4], *a[5:], s2i, s2x, geo)
+        torch.cuda.synchronize()
+        eH, sH = _scaled_err(k.H, p.H)
+        eb, sb = _scaled_err(k.b, p.b)
+        exact = bool(k.n_valid == p.n_valid) and bool(k.inlier_frac == p.inlier_frac)
+        scal = max(_rel(k.error, p.error), _rel(k.sigma2_int, p.sigma2_int),
+                   _rel(k.sigma2_xi, p.sigma2_xi))
+        ddelta = _solver_delta(T, k, p, tc.damping)
+        s_rel = max(_rel(ks.swi, ps.swi), _rel(ks.swx, ps.swx),
+                    _rel(ks.sigma2_int, ps.sigma2_int), _rel(ks.sigma2_xi, ps.sigma2_xi))
+        s_exact = bool(ks.n == ps.n) and bool(ks.n == k.n_valid)
+        good = (sH <= 1.0 and sb <= 1.0 and exact and scal <= 1e-4 and ddelta <= 1e-6
+                and s_rel <= 1e-5 and s_exact)
+        ok &= good
+        n_abs, n_scaled = max(n_abs, eH, eb), max(n_scaled, sH, sb)
+        s_abs = max(s_abs, *(float((x - y).abs()) for x, y in zip(ks, ps)))
+        print(f"[kernels] ic {label}: template {tuple(a[3].shape)} field {tuple(a[4].shape)} "
+              f"planes {tuple(a[5].shape)} n_valid {int(k.n_valid)} (plain {int(p.n_valid)}) "
+              f"H max|d| {eH:.3e} ({sH:.2f} of tol) b max|d| {eb:.3e} ({sb:.2f} of tol) "
+              f"err/sigma rel {scal:.1e} (tol 1e-4) delta max|d| {ddelta:.1e} (tol 1e-6); "
+              f"sigma pass sums/scales rel {s_rel:.1e} (tol 1e-5) count exact {s_exact} "
+              f"{'OK' if good else 'FAIL'}")
+
+    # The exact-mode chain: k sigma launches, each reading the scales the
+    # previous one wrote, then the normal launch. The scale comes out of a
+    # reduction taken in another order than the plain version's, so a pixel
+    # on the inlier gate may flip: inlier fraction within 2 pixels.
+    for label, inputs, lvl, geo, iters in (("L0 bf16 geo", vga, 0, True, 1),
+                                           ("L0 bf16 geo", vga, 0, True, 2),
+                                           ("L1 bf16 geo off", vga, 1, False, 2),
+                                           ("odd L1 bf16 geo", odd, 1, True, 1)):
+        T, a = level_args(inputs, lvl)
+        k = kernels.residuals_and_normal_eq(*a, s2i, s2x, iters, geo, tc.gate_sigmas, "exact")
+        p = gauss_newton.residuals_and_normal_eq(*a, s2i, s2x, iters, geo, tc.gate_sigmas,
+                                                 "exact")
+        torch.cuda.synchronize()
+        eH, sH = _scaled_err(k.H, p.H)
+        eb, sb = _scaled_err(k.b, p.b)
+        n = float(p.n_valid)
+        d_inl = float((k.inlier_frac - p.inlier_frac).abs())
+        scal = max(_rel(k.error, p.error), _rel(k.sigma2_int, p.sigma2_int),
+                   _rel(k.sigma2_xi, p.sigma2_xi))
+        ddelta = _solver_delta(T, k, p, tc.damping)
+        good = (sH <= 1.0 and sb <= 1.0 and bool(k.n_valid == p.n_valid)
+                and d_inl <= 2.0 / max(n, 1.0) and scal <= 1e-4 and ddelta <= 1e-6)
+        ok &= good
+        n_abs, n_scaled = max(n_abs, eH, eb), max(n_scaled, sH, sb)
+        print(f"[kernels] ic exact chain {label} sigma_iters {iters}: n_valid {int(k.n_valid)} "
+              f"(plain {int(n)}) H {sH:.2f} of tol, b {sb:.2f} of tol, inlier_frac |d| "
+              f"{d_inl:.1e} (tol 2 pixels = {2.0 / max(n, 1.0):.1e}) err/sigma rel {scal:.1e} "
+              f"(tol 1e-4) delta max|d| {ddelta:.1e} (tol 1e-6) {'OK' if good else 'FAIL'}")
+
+    records = {
+        "ic_normal": dict(
+            name="ic_normal_eq", route="cuda", source="rgbid_tpu_torch/csrc/ic_normal_eq.cu",
+            replaces="rgbid_tpu/ops/pallas_kernels.py:131", max_abs_err=n_abs,
+            max_err_of_tol=n_scaled,
+        ),
+        "ic_sigma": dict(
+            name="ic_sigma_stats", route="cuda", source="rgbid_tpu_torch/csrc/ic_normal_eq.cu",
+            replaces="rgbid_tpu/ops/pallas_kernels.py:84", max_abs_err=s_abs,
+        ),
+    }
+    # Timed at the level-0 layout (20 of the 40 IRLS iterations per frame).
+    _, a = level_args(vga, 0)
+    timing = {
+        "ic_normal": a + (s2i, s2x, True, tc.gate_sigmas, True),
+        "ic_sigma": a[:4] + a[5:] + (s2i, s2x, True),
+    }
+    return ok, records, timing
+
+
 def phase_times(records, timing):
     """Each kernel and its plain version, timed in turns (plain, kernel,
-    kernel, plain). Runs after the main path: once torch.profiler has
-    been used, the process's kernel launches cost more host time."""
+    kernel, plain) with CUDA events, then every device time with
+    torch.profiler. Runs after the main path, and takes all the event
+    times before the first profiler window: once torch.profiler has been
+    used, the process's kernel launches cost more host time."""
     pairs = {
         "esm": (kernels.esm_residuals_and_normal_eq, kernels.esm_residuals_and_normal_eq_plain,
                 "L0: template 240x320, stack 3x480x640"),
         "fusion": (fusion.fuse_core, fusion.fuse_core_plain, "480x640, growth on"),
+        "ic_normal": (kernels.ic_normal_eq, gauss_newton.normal_eq_plain,
+                      "L0: template 240x320, field 12x240x320, planes 480x640"),
+        "ic_sigma": (kernels.ic_sigma_stats, gauss_newton.sigma_stats_plain,
+                     "L0: template 240x320, planes 480x640"),
     }
+    events = {}
+    for key, (kernel, plain, _) in pairs.items():
+        args = timing[key]
+        events[key] = (_time_ms(lambda: plain(*args)), _time_ms(lambda: kernel(*args)),
+                       _time_ms(lambda: kernel(*args)), _time_ms(lambda: plain(*args)))
     for key, (kernel, plain, shape) in pairs.items():
         args = timing[key]
-        plain_ms = _time_ms(lambda: plain(*args))
-        ms = _time_ms(lambda: kernel(*args))
-        ms2 = _time_ms(lambda: kernel(*args))
-        plain_ms2 = _time_ms(lambda: plain(*args))
+        plain_ms, ms, ms2, plain_ms2 = events[key]
         dev_ms = _device_ms(lambda: kernel(*args))
         plain_dev_ms = _device_ms(lambda: plain(*args))
         print(f"[times] {key} at {shape}: kernel {ms:.4f} / {ms2:.4f} ms, plain "
@@ -393,15 +540,36 @@ def _run_sequence(slam, frames):
     return slam.poses(), ms
 
 
-def phase_main(cfg):
+# The kernel wrappers whose launch counts the main paths read.
+COUNTERS = {
+    "esm_normal_eq": kernels.esm_residuals_and_normal_eq,
+    "ic_normal_eq": kernels.ic_normal_eq,
+    "ic_sigma_stats": kernels.ic_sigma_stats,
+    "fusion": fusion.fuse_core,
+}
+
+
+def expected_launches(tc, tracked: int) -> dict:
+    """IRLS kernel launches a run must make: one normal-equation launch per
+    iteration (40 per tracked frame), plus max(sigma_iters, 1) sigma
+    launches per iteration in IC exact mode."""
+    iters = tracked * sum(tc.iters[: tc.levels])
+    if tc.jacobian == "esm":
+        return {"esm_normal_eq": iters, "ic_normal_eq": 0, "ic_sigma_stats": 0}
+    sigma = iters * max(tc.sigma_iters, 1) if tc.sigma_mode == "exact" else 0
+    return {"esm_normal_eq": 0, "ic_normal_eq": iters, "ic_sigma_stats": sigma}
+
+
+def phase_main(cfg, label: str):
+    tc = cfg.tracking
     frames, gt = make_sequence()
     slam = port.SlamSystem(TUM_FR1, cfg, device="cuda")
     # Warm-up on a short prefix (library init, allocator), then a fresh run.
     _run_sequence(slam, frames[:4])
     slam.reset()
     torch.cuda.synchronize()
-    kernels.esm_residuals_and_normal_eq.launches = 0
-    fusion.fuse_core.launches = 0
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
     reads0 = slam.host_reads
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -410,15 +578,13 @@ def phase_main(cfg):
             poses, _ = _run_sequence(slam, frames)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    launches = {
-        "esm_normal_eq": kernels.esm_residuals_and_normal_eq.launches,
-        "fusion": fusion.fuse_core.launches,
-    }
+    launches = {name: wrapper.launches for name, wrapper in COUNTERS.items()}
     reads = slam.host_reads - reads0
     # Every synchronizing operation PyTorch reports in the run should be
     # one of the deliberate host reads (none inside the IRLS loop).
     syncs = sum(str(w.message).startswith("called a synchronizing") for w in caught)
     tracked = len(frames) - 1
+    expected = expected_launches(tc, tracked)
     switches = sum(bool(s.get("switch")) for s in slam.stats)
     lost = sum(bool(s.get("lost")) for s in slam.stats)
     fused = sum(s.get("n_fused", 0) > 0 for s in slam.stats)
@@ -435,26 +601,27 @@ def phase_main(cfg):
     identical = all(np.array_equal(a, b) for a, b in zip(poses, poses2))
 
     steady = ms[5:]
-    print(f"[main] SlamSystem VGA {TUM_FR1.width}x{TUM_FR1.height}, {len(frames)} frames "
-          f"({tracked} tracked): esm launches {launches['esm_normal_eq']} (expected "
-          f"{40 * tracked}), fusion launches {launches['fusion']}, fused frames {fused}, "
-          f"switches {switches}, lost {lost}, keyframes {n_kf}")
-    print(f"[main] ATE {ate * 1e3:.3f} mm (bound {ATE_BOUND_M * 1e3:.1f} mm), poses finite "
-          f"{finite}, trajectory {len(traj)} rows, map {len(cloud)} points, cloud finite "
-          f"{bool(np.isfinite(cloud).all())}, rerun bit-identical {identical}")
+    counts = ", ".join(f"{k} {launches[k]} (expected {v})" for k, v in expected.items())
+    print(f"[main {label}] SlamSystem VGA {TUM_FR1.width}x{TUM_FR1.height}, {len(frames)} "
+          f"frames ({tracked} tracked): launches {counts}, fusion {launches['fusion']}; "
+          f"fused frames {fused}, switches {switches}, lost {lost}, keyframes {n_kf}")
+    print(f"[main {label}] ATE {ate * 1e3:.3f} mm (bound {ATE_BOUND_M * 1e3:.1f} mm), poses "
+          f"finite {finite}, trajectory {len(traj)} rows, map {len(cloud)} points, cloud "
+          f"finite {bool(np.isfinite(cloud).all())}, rerun bit-identical {identical}")
     # The highest percentile with at least ten frames above it (the median
     # when there are fewer than twenty).
     q = 100.0 * max(len(steady) - 10, len(steady) // 2) / len(steady)
-    print(f"[main] ms/frame median {np.median(steady):.2f}, p{q:.0f} "
+    print(f"[main {label}] ms/frame median {np.median(steady):.2f}, p{q:.0f} "
           f"{np.percentile(steady, q):.2f} (min {np.min(steady):.2f}, max "
           f"{np.max(steady):.2f}) over {len(steady)} frames (5..{len(frames) - 1}) of the "
           f"rerun; host reads "
           f"{reads} = {reads / tracked:.2f}/tracked frame; synchronizing operations "
           f"reported by torch.cuda sync-debug mode {syncs}")
     good = (
-        launches["esm_normal_eq"] == 40 * tracked
+        all(launches[k] == v for k, v in expected.items())
         and launches["fusion"] >= 1
         and switches >= 1
+        and lost == 0
         and finite
         and ate <= ATE_BOUND_M
         and len(traj) == len(frames)
@@ -463,7 +630,7 @@ def phase_main(cfg):
         and identical
         and syncs == reads
     )
-    print(f"[main] {'OK' if good else 'FAIL'}")
+    print(f"[main {label}] {'OK' if good else 'FAIL'}")
     return good, launches
 
 
@@ -476,15 +643,26 @@ def main() -> int:
     phase_build()
     cfg = slice_config()
     k_ok, records, timing = phase_kernels(cfg)
-    m_ok, launches = phase_main(cfg)
+    ic_ok, ic_records, ic_timing = phase_ic_kernels()
+    records.update(ic_records)
+    timing.update(ic_timing)
+    runs = [("esm", cfg), ("ic lagged", ic_config("lagged")), ("ic exact", ic_config("exact"))]
+    m_ok, total = True, dict.fromkeys(COUNTERS, 0)
+    for label, run_cfg in runs:
+        good, launches = phase_main(run_cfg, label)
+        m_ok &= good
+        for k, v in launches.items():
+            total[k] += v
     phase_times(records, timing)
-    records["esm"]["launches"] = launches["esm_normal_eq"]
-    records["fusion"]["launches"] = launches["fusion"]
-    kern = [records["esm"], records["fusion"]]
+    # Launches summed over the three main-path runs.
+    for key, counter in (("esm", "esm_normal_eq"), ("fusion", "fusion"),
+                         ("ic_normal", "ic_normal_eq"), ("ic_sigma", "ic_sigma_stats")):
+        records[key]["launches"] = total[counter]
+    kern = [records[k] for k in ("esm", "fusion", "ic_normal", "ic_sigma")]
     print(json.dumps({"kernels": kern}))
-    if not (k_ok and m_ok):
-        print(f"chip_smoke: FAILED (kernels {'ok' if k_ok else 'failed'}, main path "
-              f"{'ok' if m_ok else 'failed'})", file=sys.stderr)
+    if not (k_ok and ic_ok and m_ok):
+        print(f"chip_smoke: FAILED (kernels {'ok' if k_ok and ic_ok else 'failed'}, main "
+              f"paths {'ok' if m_ok else 'failed'})", file=sys.stderr)
         return 1
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,8 +3,11 @@
 The JAX package's ``DeviceKeyframe`` / ``MotionState`` come in as the same
 NamedTuples with numpy leaves (``jax.tree_util.tree_map(np.asarray, x)``);
 any object with the same field names works, so this module imports no JAX.
-bfloat16 leaves convert exactly to float32. The ``*_to_numpy`` functions
-go back: the port's state as numpy arrays under the same field names.
+bfloat16 leaves convert exactly to float32. A keyframe level's ``jac`` may
+hold either template layout, the (4, H, W) ESM gradients or the (12, H, W)
+IC Jacobian field: nothing here depends on the plane count. The
+``*_to_numpy`` functions go back: the port's state as numpy arrays under
+the same field names.
 """
 
 from __future__ import annotations

@@ -29,8 +29,12 @@
 // (ops/gauss_newton.py) operation by operation and the build disables FMA
 // contraction (-fmad=false), so the counts (valid pixels, inliers) equal
 // the plain version's exactly and the sums differ only by summation order.
+// The warp, gather, reductions and finalize are shared with the IC kernels
+// (irls_common.cuh).
 
 #include <cuda_runtime.h>
+
+#include "irls_common.cuh"
 
 // Must match EsmParams in ops/_build.py field by field.
 struct EsmParams {
@@ -50,32 +54,10 @@ struct EsmParams {
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSums = 32;
-
-// torch.clamp semantics: NaN passes through.
-__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
-__device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
-
-__device__ __forceinline__ void block_reduce(const float (&v)[kSums], float* smem,
-                                             float* out_row) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
-    float x = v[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) smem[warp * kSums + k] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < kSums) {
-    float s = 0.f;
-    for (int i = 0; i < kWarps; ++i) s += smem[i * kSums + threadIdx.x];
-    out_row[threadIdx.x] = s;
-  }
-}
+using irls::clamp_max;
+using irls::clamp_min;
+using irls::kNormalSums;
+using irls::kThreads;
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -85,59 +67,30 @@ esm_kernel(EsmParams p, const float* __restrict__ T, const float* __restrict__ s
            const float* __restrict__ pz, const float* __restrict__ kf_mask,
            const float* __restrict__ kf_grads, const float* __restrict__ cur,
            float* __restrict__ partials) {
-  __shared__ float smem[kWarps * kSums];
-  float acc[kSums];
+  float acc[kNormalSums];
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
+  for (int k = 0; k < kNormalSums; ++k) acc[k] = 0.f;
 
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i < p.n) {
     const float s2i = *s2i_p;
     const float s2x = *s2x_p;
     const float Px = px[i], Py = py[i], Pz = pz[i];
-
-    // transform_project (ops/warp.py)
-    const float xp = T[0] * Px + T[1] * Py + T[2] * Pz + T[3];
-    const float yp = T[4] * Px + T[5] * Py + T[6] * Pz + T[7];
-    const float zp = T[8] * Px + T[9] * Py + T[10] * Pz + T[11];
-    const float front = zp > 1e-6f ? 1.f : 0.f;
-    const float rho = 1.0f / clamp_min(zp, 1e-6f);
-    const float up = p.fx * xp * rho + p.cx;
-    const float vp = p.fy * yp * rho + p.cy;
-
-    // _corner_weights: clip to [0, w - 1.001], floor, mask-product corners.
-    const float inb = (up >= 0.f && up <= p.umax && vp >= 0.f && vp <= p.vmax) ? 1.f : 0.f;
-    const float uc = clamp_max(clamp_min(up, 0.f), p.umax);
-    const float vc = clamp_max(clamp_min(vp, 0.f), p.vmax);
-    // A NaN coordinate converts to 0; the clamp keeps every read in range.
-    const int u0 = min(max(static_cast<int>(floorf(uc)), 0), p.w - 1);
-    const int v0 = min(max(static_cast<int>(floorf(vc)), 0), p.h - 1);
-    const float fu = uc - static_cast<float>(u0);
-    const float fv = vc - static_cast<float>(v0);
-    const int u1 = min(u0 + 1, p.w - 1);
-    const int v1 = min(v0 + 1, p.h - 1);
+    const irls::Projection pr = irls::project(T, Px, Py, Pz, p.fx, p.fy, p.cx, p.cy);
+    const float rho = pr.rho;
+    const irls::Corners cn = irls::corners(pr.up, pr.vp, p.h, p.w, p.umax, p.vmax);
     const int hw = p.h * p.w;
-    const int i00 = v0 * p.w + u0, i01 = v0 * p.w + u1;
-    const int i10 = v1 * p.w + u0, i11 = v1 * p.w + u1;
-    const float w00 = (1.f - fu) * (1.f - fv);
-    const float w01 = fu * (1.f - fv);
-    const float w10 = (1.f - fu) * fv;
-    const float w11 = fu * fv;
     float smp[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float* pl = cur + c * hw;
-      smp[c] = pl[i00] * w00 + pl[i01] * w01 + pl[i10] * w10 + pl[i11] * w11;
-    }
-    const float* mk = cur + 2 * hw;
-    const float mask_ok = mk[i00] * mk[i01] * mk[i10] * mk[i11];
-    const float valid = kf_mask[i] * front * inb * mask_ok;
+    for (int c = 0; c < C; ++c) smp[c] = irls::blend(cur + c * hw, cn);
+    const float mask_ok = irls::corner_product(cur + 2 * hw, cn);
+    const float valid = kf_mask[i] * pr.front * cn.inb * mask_ok;
     const float r_i = (smp[0] - kf_int[i]) * valid;
     const float r_x = (smp[1] - rho) * valid;
 
     // Student-t weights; the occlusion gate touches the weights only.
-    const float w0i = (1.0f / (r_i * r_i / s2i + p.nu)) * p.nu1;
-    const float w0x = (1.0f / (r_x * r_x / s2x + p.nu)) * p.nu1;
+    const float w0i = irls::student_w0(r_i, s2i, p.nu, p.nu1);
+    const float w0x = irls::student_w0(r_x, s2x, p.nu, p.nu1);
     float w_i, w_x;
     if (p.occlusion_gate && p.use_geometric) {
       float thresh = p.occ_a * s2x + p.occ_b;
@@ -223,50 +176,7 @@ esm_kernel(EsmParams p, const float* __restrict__ T, const float* __restrict__ s
     acc[30] = valid * w0i * r_i * r_i;
     acc[31] = valid * w0x * r_x * r_x;
   }
-  block_reduce(acc, smem, partials + blockIdx.x * kSums);
-}
-
-// Sums the (n_blocks, 32) partials in a fixed order and writes
-// out[0:36] H (6x6, per valid pixel), out[36:42] b, out[42] sigma2_int,
-// out[43] sigma2_xi, out[44] error, out[45] n_valid, out[46] inlier_frac.
-__global__ void __launch_bounds__(kThreads)
-esm_finalize(const float* __restrict__ partials, int n_blocks,
-             const float* __restrict__ s2x_in, int use_geometric, float* __restrict__ out) {
-  __shared__ float part[kWarps][kSums];
-  __shared__ float sums[kSums];
-  const int k = threadIdx.x & 31;
-  const int g = threadIdx.x >> 5;
-  float s = 0.f;
-  for (int b = g; b < n_blocks; b += kWarps) s += partials[b * kSums + k];
-  part[g][k] = s;
-  __syncthreads();
-  if (threadIdx.x < kSums) {
-    float tot = 0.f;
-    for (int j = 0; j < kWarps; ++j) tot += part[j][threadIdx.x];
-    sums[threadIdx.x] = tot;
-  }
-  __syncthreads();
-  const float n_valid = sums[29];
-  const float inv_n = 1.0f / clamp_min(n_valid, 1.f);
-  const int t = threadIdx.x;
-  if (t < 36) {
-    const int a = min(t / 6, t % 6), c = max(t / 6, t % 6);
-    out[t] = sums[a * 6 - a * (a - 1) / 2 + (c - a)] * inv_n;
-  } else if (t < 42) {
-    out[t] = sums[21 + (t - 36)] * inv_n;
-  } else if (t == 42) {
-    out[t] = clamp_min(sums[30] * inv_n, 1e-12f);
-  } else if (t == 43) {
-    out[t] = use_geometric ? clamp_min(sums[31] * inv_n, 1e-12f) : *s2x_in;
-  } else if (t == 44) {
-    out[t] = sums[27] * inv_n;
-  } else if (t == 45) {
-    out[t] = n_valid;
-  } else if (t == 46) {
-    out[t] = sums[28] * inv_n;
-  } else if (t == 47) {
-    out[t] = 0.f;
-  }
+  irls::block_reduce<kNormalSums>(acc, partials + blockIdx.x * kNormalSums);
 }
 
 }  // namespace
@@ -299,6 +209,7 @@ extern "C" int esm_normal_eq_launch(EsmParams p, int channels, const float* T,
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  esm_finalize<<<1, kThreads, 0, st>>>(partials, n_blocks, s2x, p.use_geometric, out);
+  irls::normal_finalize<<<1, kThreads, 0, st>>>(partials, n_blocks, s2i, s2x,
+                                                p.use_geometric, /*lagged=*/1, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,11 @@
 """Keyframe state: device tensors + host metadata (Keyframe struct, K10).
 
-Counterpart of ``rgbid_tpu/mapping/keyframe.py:25-276`` for the ESM
-template layout (4 gradient planes per level).
+Counterpart of ``rgbid_tpu/mapping/keyframe.py:25-276``, for both template
+layouts: ESM (4 gradient planes per level) and IC (the (12, H, W)
+Jacobian field).
 
 ``jac_dtype="bf16"`` (the config default) keeps the JAX package's numbers:
-the gradient planes are rounded to bfloat16 precision where the reference
+the template planes are rounded to bfloat16 precision where the reference
 stores them as bfloat16, but they are held (and read by the kernels) as
 float32.
 """
@@ -17,15 +18,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import image
-from ..tracking.frames import FrameLevel, KeyframeLevel
-
-
-def round_jac(x: torch.Tensor, jac_dtype: str) -> torch.Tensor:
-    """Round template gradient planes to the configured storage precision."""
-    if jac_dtype == "bf16":
-        return x.to(torch.bfloat16).to(torch.float32)
-    return x
+from ..core.camera import Intrinsics
+from ..ops import gauss_newton, image
+from ..ops.gauss_newton import round_jac
+from ..tracking.frames import FrameLevel, KeyframeLevel, template_levels
 
 
 class DeviceKeyframe(NamedTuple):
@@ -44,23 +40,14 @@ class DeviceKeyframe(NamedTuple):
     mask_full: torch.Tensor  # (H, W) full estimate mask
 
 
-def _template_levels(int_pyr, xi_pyr, mask_pyr, jac_dtype: str) -> Tuple[KeyframeLevel, ...]:
-    out = []
-    for l in range(len(int_pyr)):
-        gx_i, gy_i = image.gradients_unmasked(int_pyr[l])
-        gx_x, gy_x = image.gradients(xi_pyr[l], mask_pyr[l])
-        jac = round_jac(torch.stack([gx_i, gy_i, gx_x, gy_x]), jac_dtype)
-        out.append(KeyframeLevel(int_pyr[l], xi_pyr[l], mask_pyr[l], jac))
-    return tuple(out)
-
-
 def create_device_keyframe(
-    frame: Tuple[FrameLevel, ...], cfg, jac_dtype: str = "f32"
+    frame: Tuple[FrameLevel, ...], intr: Intrinsics, cfg, jac_dtype: str = "f32",
+    jacobian: str = "ic",
 ) -> DeviceKeyframe:
     """Promote a preprocessed frame to a fresh keyframe (variance = sensor)."""
-    levels = _template_levels(
+    levels = template_levels(
         [l.intensity for l in frame], [l.xi for l in frame], [l.mask for l in frame],
-        jac_dtype,
+        intr, jac_dtype, jacobian,
     )
     mask0 = frame[0].mask
     var0 = torch.where(
@@ -77,11 +64,18 @@ def create_device_keyframe(
     )
 
 
-def _rebuild_level0(old: KeyframeLevel, xi0, mask0, jac_dtype: str) -> KeyframeLevel:
-    """Finest-level template refresh: intensity (and its gradients) never
-    change under fusion, so only the two xi-gradient planes are recomputed."""
+def _rebuild_level0(old: KeyframeLevel, xi0, mask0, intr: Intrinsics, jac_dtype: str,
+                    jacobian: str) -> KeyframeLevel:
+    """Finest-level template refresh. Intensity never changes under fusion,
+    so ESM recomputes only the two xi-gradient planes; IC recomputes its
+    whole field (it mixes intensity gradients with the xi-dependent warp
+    Jacobian)."""
     gx_x, gy_x = image.gradients(xi0, mask0)
-    jac = torch.cat([old.jac[:2], round_jac(torch.stack([gx_x, gy_x]), jac_dtype)], dim=0)
+    if jacobian == "esm":
+        jac = torch.cat([old.jac[:2], round_jac(torch.stack([gx_x, gy_x]), jac_dtype)], dim=0)
+    else:
+        gx_i, gy_i = image.gradients_unmasked(old.intensity)
+        jac = gauss_newton.template_jacobians(gx_i, gy_i, gx_x, gy_x, xi0, mask0, intr, jac_dtype)
     return KeyframeLevel(old.intensity, xi0, mask0, jac)
 
 
@@ -91,23 +85,26 @@ def rebuild_after_fusion(
     var0: torch.Tensor,
     mask0: torch.Tensor,
     hits: torch.Tensor,
+    intr: Intrinsics,
     jac_dtype: str = "f32",
+    jacobian: str = "ic",
     coarse_every: int = 1,
     confirm_hits: float = 2.0,
     fine_every: int = 1,
 ) -> DeviceKeyframe:
-    """Rebuild the tracking template from the fused level-0 inverse depth.
+    """Rebuild the tracking template from the fused level-0 inverse depth
+    (``intr`` is the level-0 camera).
 
     The template is gated to confirmed pixels (hits >= confirm_hits).
     Level 0 is refreshed every ``fine_every`` fused
-    frames (its xi/mask always); the coarse xi pyramid and gradients every
+    frames (its xi/mask always); the coarse xi pyramid and templates every
     ``coarse_every`` fused frames. The schedule is a host branch on the
     host-side ``fused_count``."""
     count = kf.fused_count + 1
     tmask = mask0 * (hits >= confirm_hits).to(torch.float32)
     old0 = kf.levels[0]
     if fine_every <= 1 or count % fine_every == 0:
-        new0 = _rebuild_level0(old0, xi0, tmask, jac_dtype)
+        new0 = _rebuild_level0(old0, xi0, tmask, intr, jac_dtype, jacobian)
     else:
         new0 = KeyframeLevel(old0.intensity, xi0, tmask, old0.jac)
     n_levels = len(kf.levels)
@@ -116,7 +113,7 @@ def rebuild_after_fusion(
     elif coarse_every <= 1 or count % coarse_every == 0:
         xi_pyr, mask_pyr = image.build_pyramid(xi0, tmask, n_levels)
         int_pyr = [l.intensity for l in kf.levels]
-        coarse = _template_levels(int_pyr, xi_pyr, mask_pyr, jac_dtype)[1:]
+        coarse = template_levels(int_pyr, xi_pyr, mask_pyr, intr, jac_dtype, jacobian)[1:]
     else:
         coarse = tuple(kf.levels[1:])
     return DeviceKeyframe(

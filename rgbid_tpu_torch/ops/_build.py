@@ -1,10 +1,11 @@
 """Build the repository's CUDA sources with nvcc and bind them with ctypes.
 
 The sources under ``rgbid_tpu_torch/csrc/`` have a plain C interface (no
-PyTorch headers), so one nvcc call builds them in seconds. The shared
-library goes to ``build/rgbid_tpu_torch/`` at the repository root, named by
-a hash of the sources and flags: the first call in a process builds it if
-that file is missing, later calls load it. Nothing here runs at import.
+PyTorch headers), so nvcc builds them in seconds: one nvcc process per
+source, all started together, then one link. The shared library goes to
+``build/rgbid_tpu_torch/`` at the repository root, named by a hash of the
+sources, headers and flags: the first call in a process builds it if that
+file is missing, later calls load it. Nothing here runs at import.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so the kernels'
 per-pixel float arithmetic rounds exactly like the plain PyTorch versions
@@ -25,12 +26,12 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "esm_normal_eq.cu", _PKG / "csrc" / "fusion.cu")
+SOURCES = tuple(_PKG / "csrc" / f for f in ("esm_normal_eq.cu", "fusion.cu", "ic_normal_eq.cu"))
+HEADERS = (_PKG / "csrc" / "irls_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "rgbid_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
 )
 
 
@@ -53,6 +54,27 @@ class EsmParams(ctypes.Structure):
         ("occ_a", ctypes.c_float),
         ("occ_b", ctypes.c_float),
         ("cap2", ctypes.c_float),
+        ("umax", ctypes.c_float),
+        ("vmax", ctypes.c_float),
+    ]
+
+
+class IcParams(ctypes.Structure):
+    """By-value parameters of ``ic_sigma_launch`` and ``ic_normal_launch``
+    (csrc/ic_normal_eq.cu)."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("h", ctypes.c_int),
+        ("w", ctypes.c_int),
+        ("use_geometric", ctypes.c_int),
+        ("fx", ctypes.c_float),
+        ("fy", ctypes.c_float),
+        ("cx", ctypes.c_float),
+        ("cy", ctypes.c_float),
+        ("nu", ctypes.c_float),
+        ("nu1", ctypes.c_float),
+        ("gate2", ctypes.c_float),
         ("umax", ctypes.c_float),
         ("vmax", ctypes.c_float),
     ]
@@ -95,8 +117,14 @@ class Library:
         lib.esm_normal_eq_launch.restype = ctypes.c_int
         lib.fusion_launch.argtypes = [FusionParams] + [P] * 17
         lib.fusion_launch.restype = ctypes.c_int
+        lib.ic_sigma_launch.argtypes = [IcParams] + [P] * 14
+        lib.ic_sigma_launch.restype = ctypes.c_int
+        lib.ic_normal_launch.argtypes = [IcParams, ctypes.c_int] + [P] * 15
+        lib.ic_normal_launch.restype = ctypes.c_int
         self.esm_normal_eq_launch = lib.esm_normal_eq_launch
         self.fusion_launch = lib.fusion_launch
+        self.ic_sigma_launch = lib.ic_sigma_launch
+        self.ic_normal_launch = lib.ic_normal_launch
         self._lib = lib
 
 
@@ -116,9 +144,42 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _compile_and_link(out: Path) -> str:
+    """nvcc -c for every source in parallel, then nvcc -shared; returns the
+    compilers' output. The library appears at ``out`` atomically."""
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    procs = []
+    try:
+        for src in SOURCES:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src.stem}.o"), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        log = ""
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            log += text
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        tmp = work / out.name
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(work / f"{s.stem}.o") for s in SOURCES)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+        return log
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 _LIBRARY: Library | None = None
@@ -133,17 +194,9 @@ def library() -> Library:
     log, build_s = "", 0.0
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile_and_link(out)
         build_s = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
     _LIBRARY = Library(out, log, build_s)
     return _LIBRARY
 

@@ -18,6 +18,12 @@ import torch.nn.functional as F
 # K1 -----------------------------------------------------------------------
 
 
+def intensity_from_rgb(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) uint8 RGB -> luma float32 in [0, 1] (BT.601)."""
+    rgb = rgb_u8.to(torch.float32) * (1.0 / 255.0)
+    return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+
+
 def inverse_depth_from_u16(
     depth_u16: torch.Tensor,
     depth_scale: float = 5000.0,

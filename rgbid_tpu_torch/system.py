@@ -19,6 +19,7 @@ from .core.config import SlamConfig, TrackingConfig
 from .mapping.keyframe import DeviceKeyframe
 from .mapping.manager import KeyframeManager
 from .tracking.step import MotionState, ProcessFrame, StepResult, pack_frame
+from .tracking.tracker import check_tracking_supported
 
 se3_np = load_reference("reference_cpu/se3_np.py")
 _export = load_reference("mapping/export.py")
@@ -30,16 +31,12 @@ def check_supported(cfg: SlamConfig) -> None:
 
     ``tracking.kernel``, ``fusion.kernel`` and ``tracking.stacked_gather``
     are accepted and ignored: the tensor's device picks the kernel or its
-    plain version, and the CUDA kernels gather per thread."""
-    t = cfg.tracking
+    plain version, and the CUDA kernels gather per thread. The tracking
+    rows are ``check_tracking_supported``'s."""
+    check_tracking_supported(cfg.tracking)
     unsupported = [
-        (t.consensus, "tracking.consensus=True", "ROADMAP Queue 1 #8"),
         (cfg.backend.enabled, "backend.enabled=True", "ROADMAP Queue 1 #9"),
-        (t.jacobian != "esm", f"tracking.jacobian={t.jacobian!r}", "ROADMAP Queue 1 #11"),
-        (t.plane_dtype != "f32", f"tracking.plane_dtype={t.plane_dtype!r}", "ROADMAP Queue 1 #13"),
         (cfg.depth_codec != "u16", f"depth_codec={cfg.depth_codec!r}", "ROADMAP Queue 1 #13"),
-        (t.early_exit_tol > 0, "tracking.early_exit_tol > 0", "ROADMAP Queue 1 #13"),
-        (t.conv_skip_tol > 0, "tracking.conv_skip_tol > 0", "ROADMAP Queue 1 #13"),
         (cfg.viz.enabled, "viz.enabled=True", "ROADMAP Queue 1 #10"),
     ]
     for bad, what, item in unsupported:

@@ -142,7 +142,8 @@ def frame_pyramid(packed_u8: torch.Tensor, cfg):
     gray, xi, mask = decode_frame(packed_u8, cfg)
     intensity = gray.to(torch.float32) * (1.0 / 255.0)
     return preprocess_planes(
-        intensity, xi, mask, tcfg.levels, tcfg.esm_min_level, tcfg.esm_geo_min_level
+        intensity, xi, mask, tcfg.levels, tcfg.jacobian == "esm", tcfg.esm_min_level,
+        tcfg.esm_geo_min_level,
     )
 
 
@@ -167,9 +168,12 @@ class ProcessFrame:
         self.host_reads = 0
 
     def init_keyframe(self, packed_u8: torch.Tensor) -> DeviceKeyframe:
-        return create_device_keyframe(
-            frame_pyramid(packed_u8, self.cfg), self.cfg.fusion, self.cfg.tracking.jac_dtype
-        )
+        return self._found(frame_pyramid(packed_u8, self.cfg))
+
+    def _found(self, cur) -> DeviceKeyframe:
+        """A new keyframe from the frame pyramid ``cur``."""
+        tcfg = self.cfg.tracking
+        return create_device_keyframe(cur, self.intr, self.cfg.fusion, tcfg.jac_dtype, tcfg.jacobian)
 
     def _read(self, t: torch.Tensor) -> np.ndarray:
         self.host_reads += 1
@@ -228,7 +232,7 @@ class ProcessFrame:
         if is_lost:
             kf2 = kf
         elif is_switch:
-            kf2 = create_device_keyframe(cur, fcfg, tcfg.jac_dtype)
+            kf2 = self._found(cur)
         elif not fcfg.enabled:
             kf2 = kf
         elif fcfg.fuse_every > 1 and kf.fused_count % fcfg.fuse_every != 0:
@@ -269,7 +273,8 @@ class ProcessFrame:
             T, cov + floor, self.intrs[0], fcfg, guess=guess, gmask=gmask,
         )
         kf2 = rebuild_after_fusion(
-            kf, xi2, var2, mask2, hits2, tcfg.jac_dtype, fcfg.coarse_rebuild_every,
-            confirm_hits=fcfg.confirm_hits, fine_every=fcfg.fine_rebuild_every,
+            kf, xi2, var2, mask2, hits2, self.intr, tcfg.jac_dtype, tcfg.jacobian,
+            fcfg.coarse_rebuild_every, confirm_hits=fcfg.confirm_hits,
+            fine_every=fcfg.fine_rebuild_every,
         )
         return kf2, n_fused

@@ -1,14 +1,16 @@
-"""Coarse-to-fine ESM IRLS tracker, slice A (motion consensus off).
+"""Coarse-to-fine IRLS tracker, ESM and IC, without the motion consensus.
 
-Counterpart of ``rgbid_tpu/tracking/tracker.py:59-131, 134-230, 319-514,
-950-996``: affine illumination, the template stride with stride-scaled
-backprojection intrinsics, the level loop with the occlusion-gate cap at
-the finest level, and the overlap / kf_count tail. The TPU-only tiling
-is not ported.
+Counterpart of ``rgbid_tpu/tracking/tracker.py:40-56, 59-131, 134-230,
+319-514, 950-1027``: affine illumination (ESM), the template stride with
+stride-scaled backprojection intrinsics, the level loop (the ESM kernel
+with the occlusion-gate cap at the finest level, or the IC kernels in
+either sigma mode), the overlap / kf_count tail, and the standalone
+``Tracker``. The JAX package runs its consensus only in ESM mode, so IC
+mode is complete here. The TPU-only tiling is not ported.
 
-The IRLS loop is a Python loop over ``cfg.iters``. Each iteration is one
-ESM kernel launch and the 6x6 solve, all on the device: nothing in the
-loop reads a device value back to the host.
+The IRLS loop is a Python loop over ``cfg.iters``. Each iteration is the
+kernel launches of one evaluation and the 6x6 solve, all on the device:
+nothing in the loop reads a device value back to the host.
 """
 
 from __future__ import annotations
@@ -17,12 +19,28 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..core.camera import Intrinsics
-from ..mapping.keyframe import round_jac
+from ..core.camera import Intrinsics, level_intrinsics
 from ..ops import gauss_newton
-from ..ops.kernels import esm_residuals_and_normal_eq
+from ..ops.gauss_newton import round_jac
+from ..ops.kernels import esm_residuals_and_normal_eq, residuals_and_normal_eq
 from ..ops.warp import backproject_grid
 from .frames import FrameLevel, KeyframeLevel
+
+
+def check_tracking_supported(t) -> None:
+    """Raise NotImplementedError for a TrackingConfig setting this port does
+    not run yet, naming the ROADMAP item that brings it. The consensus
+    flag counts only in ESM mode, where the JAX package runs it."""
+    unsupported = [
+        (t.consensus and t.jacobian == "esm", "tracking.consensus=True with jacobian='esm'",
+         "ROADMAP Queue 1 #8"),
+        (t.plane_dtype != "f32", f"tracking.plane_dtype={t.plane_dtype!r}", "ROADMAP Queue 1 #13"),
+        (t.early_exit_tol > 0, "tracking.early_exit_tol > 0", "ROADMAP Queue 1 #13"),
+        (t.conv_skip_tol > 0, "tracking.conv_skip_tol > 0", "ROADMAP Queue 1 #13"),
+    ]
+    for bad, what, item in unsupported:
+        if bad:
+            raise NotImplementedError(f"rgbid_tpu_torch does not run {what} yet ({item})")
 
 
 def _apply_affine_illumination(
@@ -76,8 +94,9 @@ class TrackResult(NamedTuple):
 
 
 def template_level(kl: KeyframeLevel, intr_l: Intrinsics, s: int):
-    """One level's template as the ESM kernel reads it: every s-th row and
-    column (contiguous copies) and the backprojected points.
+    """One level's template as the kernels read it: every s-th row and
+    column of every plane, the ESM gradients or the IC field included
+    (contiguous copies), and the backprojected points.
 
     Strided pixel (i, j) is pixel (s i, s j) of the level, so
     backprojection uses plain 1/s-scaled intrinsics while projection (in
@@ -105,9 +124,12 @@ def track(
     cfg,
     jac_dtype: str = "f32",
 ) -> TrackResult:
-    """The production coarse-to-fine tracker with motion consensus off
-    (``cfg`` is a TrackingConfig; see SlamSystem for the knobs that raise)."""
+    """The production coarse-to-fine tracker without the motion consensus
+    (``cfg`` is a TrackingConfig; ``check_tracking_supported`` lists the
+    settings that raise). ``jac_dtype`` is the template's storage precision,
+    which the ESM affine illumination rounds its rescaled planes to."""
     levels = cfg.levels
+    esm = cfg.jacobian == "esm"
     dev = T_init.device
     T = T_init
     s2i = torch.full((), cfg.init_sigma_int**2, dtype=torch.float32, device=dev)
@@ -115,7 +137,7 @@ def track(
     H = torch.eye(6, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
-    if cfg.affine_illumination:
+    if cfg.affine_illumination and esm:
         kf = _apply_affine_illumination(kf, cur, jac_dtype)
     strides = tuple(cfg.template_stride or ())
     strides = strides + (1,) * max(0, levels - len(strides))
@@ -129,11 +151,18 @@ def track(
         gate_cap = cfg.occ_gate_cap if level <= cfg.occ_gate_cap_level else 0.0
         err = inl = nv = zero
         for _ in range(n_iters):
-            res = esm_residuals_and_normal_eq(
-                T, kl.intensity, points, kl.mask, kl.jac, cl.stack7, intr_l,
-                cfg.student_t_nu, s2i, s2x, cfg.use_geometric, cfg.gate_sigmas,
-                cfg.occlusion_gate, gate_cap=gate_cap,
-            )
+            if esm:
+                res = esm_residuals_and_normal_eq(
+                    T, kl.intensity, points, kl.mask, kl.jac, cl.stack7, intr_l,
+                    cfg.student_t_nu, s2i, s2x, cfg.use_geometric, cfg.gate_sigmas,
+                    cfg.occlusion_gate, gate_cap=gate_cap,
+                )
+            else:
+                res = residuals_and_normal_eq(
+                    T, kl.intensity, points, kl.mask, kl.jac, cl.intensity, cl.xi, cl.mask,
+                    intr_l, cfg.student_t_nu, s2i, s2x, cfg.sigma_iters, cfg.use_geometric,
+                    cfg.gate_sigmas, cfg.sigma_mode,
+                )
             T, _ = gauss_newton.ic_update(T, res.H, res.b, cfg.damping, res.n_valid)
             s2i, s2x, H = res.sigma2_int, res.sigma2_xi, res.H
             err, inl, nv = res.error, res.inlier_frac, res.n_valid
@@ -161,3 +190,30 @@ def track(
         sigma2_xi=s2x,
         kf_count=kf_count,
     )
+
+
+class Tracker:
+    """Frame-to-keyframe tracker bound to (intrinsics, config): the JAX
+    package's standalone odometry API.
+
+        tracker = Tracker(intr, TrackingConfig(levels=3, iters=(4, 8, 16), jacobian="ic"))
+        kf = keyframe_pyramid(preprocess_frame(rgb0, depth0, 3), intr)
+        res = tracker.track(kf, preprocess_frame(rgb1, depth1, 3), T_init)
+
+    The tensors' device decides where it runs. ``jac_dtype`` is the
+    template's storage precision (``keyframe_pyramid``'s), which ESM's
+    affine illumination rounds to; the JAX package reads it from the array.
+    ESM mode needs ``consensus=False`` until the motion consensus is ported
+    (ROADMAP Queue 1 #8)."""
+
+    def __init__(self, intr: Intrinsics, cfg, jac_dtype: str = "f32"):
+        check_tracking_supported(cfg)
+        self.intr = intr
+        self.cfg = cfg
+        self.jac_dtype = jac_dtype
+        self.intrs = tuple(level_intrinsics(intr, l) for l in range(cfg.levels))
+
+    def track(
+        self, kf: Tuple[KeyframeLevel, ...], cur: Tuple[FrameLevel, ...], T_init: torch.Tensor
+    ) -> TrackResult:
+        return track(kf, cur, T_init, self.intrs, self.cfg, self.jac_dtype)

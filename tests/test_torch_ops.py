@@ -158,7 +158,7 @@ def test_preprocess_planes_matches_jax(geo_min):
     xj, mj = jimage.inverse_depth_from_u16(jnp.asarray(d16))
     pj = j_preprocess(jnp.asarray(inten), xj, mj, 4, True, 1, esm_geo_min_level=geo_min)
     pt = t_preprocess(_t(inten), _t((xj)),
-                      _t((mj)), 4, 1, geo_min)
+                      _t((mj)), 4, True, 1, geo_min)
     chans = [3, 5 if geo_min == 2 else 7, 7, 7]
     for l in range(4):
         assert tuple(pt[l].stack7.shape) == (chans[l],) + tuple(pj[l].xi.shape)
@@ -176,10 +176,10 @@ def test_create_device_keyframe_matches_jax(jac_dtype):
     xj, mj = jimage.inverse_depth_from_u16(jnp.asarray(d16))
     pj = j_preprocess(jnp.asarray(inten), xj, mj, 4, True, 1)
     pt = t_preprocess(_t(inten), _t((xj)),
-                      _t((mj)), 4, 1, 0)
+                      _t((mj)), 4, True, 1, 0)
     jd = jnp.bfloat16 if jac_dtype == "bf16" else jnp.float32
     kj = j_create_kf(pj, JINTR, JFusionConfig(), jd, "esm")
-    kt = t_create_kf(pt, FusionConfig(), jac_dtype)
+    kt = t_create_kf(pt, INTR, FusionConfig(), jac_dtype, "esm")
     for lj, lt in zip(kj.levels, kt.levels):
         np.testing.assert_allclose(_np(lt.intensity), np.asarray(lj.intensity), atol=1e-6)
         np.testing.assert_array_equal(_np(lt.mask), np.asarray(lj.mask))

@@ -222,7 +222,6 @@ def test_chip_smoke_scene_on_cpu():
     [
         {"tracking.consensus": True},
         {"backend.enabled": True},
-        {"tracking.jacobian": "ic"},
         {"tracking.plane_dtype": "bf16"},
         {"depth_codec": "u12"},
         {"tracking.early_exit_tol": 1e-5},
