@@ -10,23 +10,27 @@ otherwise. Phases, each printing its own lines:
 2. build: nvcc builds csrc/*.cu from this checkout (timed);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes the main path gives it, with the stated tolerances. The
-   fused IRLS kernels (one launch = evaluation, 6x6 solve and pose update)
-   are held to the plain evaluation followed by ``ic_update``, in every
-   layout, in a few-valid case (the update suppressed) and in a rerun
-   (bit-identical);
+   fused IRLS kernels (one launch = evaluation, 6x6 solve and pose update;
+   in IC exact mode the Student-t scale phases too) are held to the plain
+   evaluation followed by ``ic_update``, in every layout, in a few-valid
+   case (the update suppressed) and in a rerun (bit-identical); the scale
+   step alone and the one-launch fusion step (480x640 and 641x481, growth
+   on and off) are held to their plain versions and rerun;
 4. main paths: SlamSystem over a synthetic VGA sequence with known ground
    truth, three times: the ESM slice configuration, then the
    inverse-compositional (IC) configuration with lagged and then exact
-   Student-t scales. Each run checks launch counts, keyframe switches,
-   lost frames, finite poses, its ATE bound, host reads against the syncs
-   PyTorch reports, and run-to-run bit-identity of poses, and prints
-   ms/frame;
+   Student-t scales. Each run checks launch counts (one per IRLS
+   iteration, one fusion launch per fused frame, the scale phases inside
+   the IC exact launches), keyframe switches, lost frames, finite poses,
+   its ATE bound, host reads against the syncs PyTorch reports, and
+   run-to-run bit-identity of poses, and prints ms/frame;
 5. times: each kernel and its plain version, with CUDA events and with
    torch.profiler, beside the least time the card could take (bytes over
    3.35 TB/s, or operations over 67 TFLOP/s f32); the ESM kernel at every
-   pyramid level's layout. Then torch.profiler over tracked frames of one
-   ESM run: device ops per frame and the largest of them. Profiling runs
-   last, because it slows later launches.
+   pyramid level's layout, the IC step lagged and exact. Then
+   torch.profiler over tracked frames of one ESM run: device ops per frame
+   (fused and not) and the largest of them. Profiling runs last, because
+   it slows later launches.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Imports no JAX and no OpenCV: the scene is
@@ -35,6 +39,7 @@ rendered here with numpy and scipy.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -239,19 +244,26 @@ def _time_ms(fn, reps: int = 50) -> float:
 
 def _device_ms(fn, reps: int = 20) -> float:
     """Device time per call: the summed duration of the GPU
-    kernels `reps` calls launch, from torch.profiler, over `reps`."""
+    kernels `reps` calls launch, from torch.profiler, over `reps`. A
+    profiler window that records no device activity (it happens, rarely) is
+    taken again, up to three times; then the time comes from CUDA events,
+    launch cost included, and a line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    print("[times] torch.profiler recorded no device time in three windows: CUDA events instead")
+    return _time_ms(fn, reps)
 
 
 def _scaled_err(k: torch.Tensor, p: torch.Tensor):
@@ -292,7 +304,7 @@ F32_FLOPS = 67e12
 # + 3, residuals and weights ~26, Jacobians ~89 (ESM), the 32 sums ~180.
 # Each kernel is bytes-bound by more than 4x, so the counts only need to be
 # close.
-FLOPS_PER_PIXEL = {"esm": 385, "ic_normal": 256, "ic_sigma": 79, "fusion": 200}
+FLOPS_PER_PIXEL = {"esm": 385, "ic_normal": 256, "ic_sigma": 79, "fusion": 220}
 
 
 def _tensors(x):
@@ -447,39 +459,54 @@ def phase_kernels(cfg):
              tc.student_t_nu, s2i, s2x, tc.use_geometric, tc.gate_sigmas, tc.occlusion_gate, cap)
         timing.append(("esm", f"L{lvl}", step, lambda a: chain(a)[1:], a,
                        FLOPS_PER_PIXEL["esm"] * kl.mask.numel(),
-                       f"template {tuple(kl.mask.shape)}, stack {tuple(cur[lvl].stack7.shape)}"))
+                       f"template {tuple(kl.mask.shape)}, stack {tuple(cur[lvl].stack7.shape)}",
+                       a))
 
-    # Fusion at 480x640: the keyframe of frame 0 fused with frame 3.
-    kf, cur, T, intrs = vga
+    # Fusion, one launch (hole guess, pose floor, Kalman update, hits and
+    # mask): the keyframe of frame 0 fused with frame 3, at 480x640 and at
+    # the odd 641x481, growth on and off, against the plain composition.
+    # The covariance is SPD and not diagonal; the tracker's comes out
+    # column-major (cholesky_solve), the layout of the odd-size cases.
     fcfg = cfg.fusion
-    cov = torch.diag(torch.tensor([4e-6, 4e-6, 9e-6, 1e-6, 1e-6, 4e-6])).cuda()
-    guess, gmask = fusion.hole_guess(kf.levels)
+    A = np.random.default_rng(7).standard_normal((6, 6)) * 1e-3
+    cov = torch.from_numpy(A @ A.T + np.diag([4e-6, 4e-6, 9e-6, 1e-6, 1e-6, 4e-6])).float().cuda()
     fus_abs = 0.0
-    for label, g, gm in (("growth on", guess, gmask), ("growth off", None, None)):
-        args = (kf.levels[0].xi, kf.var, kf.mask_full, cur[0].xi, cur[0].mask, T, cov,
-                intrs[0], fcfg, g, gm)
-        k = fusion.fuse_core(*args)
-        p = fusion.fuse_core_plain(*args)
-        torch.cuda.synchronize()
-        e_xi = float((k[0] - p[0]).abs().max())
-        e_var = float((k[1] - p[1]).abs().max())
-        masks_eq = bool(torch.equal(k[2], p[2])) and bool(torch.equal(k[3], p[3]))
-        n_eq = float(k[4]) == float(p[4])
-        good = masks_eq and n_eq and e_xi <= 1e-6 and e_var <= 1e-9
-        ok &= good
-        fus_abs = max(fus_abs, e_xi, e_var)
-        print(f"[kernels] fusion {label} 480x640: n_fused {int(k[4])} (plain {int(p[4])}) "
-              f"claims {int(k[3].sum())} xi max|d| {e_xi:.3e} (tol 1e-6) var max|d| "
-              f"{e_var:.3e} (tol 1e-9) masks equal {masks_eq} {'OK' if good else 'FAIL'}")
+    for size, (kf, cur, T, intrs), C in (("480x640", vga, cov),
+                                         ("641x481", odd, cov.T.contiguous().T)):
+        for label, grow in (("growth on", True), ("growth off", False)):
+            args = (kf.levels, kf.var, kf.mask_full, kf.hits, cur[0].xi, cur[0].mask, T, C,
+                    intrs[0], dataclasses.replace(fcfg, grow_validity=grow))
+            k, k2 = fusion.fuse_frame(*args), fusion.fuse_frame(*args)
+            p = fusion.fuse_frame_plain(*args)
+            torch.cuda.synchronize()
+            e_xi = float((k[0] - p[0]).abs().max())
+            e_var = float((k[1] - p[1]).abs().max())
+            masks_eq = bool(torch.equal(k[2], p[2])) and bool(torch.equal(k[3], p[3]))
+            n_eq = float(k[4]) == float(p[4])
+            same = all(torch.equal(a, b) for a, b in zip(k, k2))
+            good = masks_eq and n_eq and e_xi <= 1e-6 and e_var <= 1e-9 and same
+            ok &= good
+            fus_abs = max(fus_abs, e_xi, e_var)
+            grown = int((k[2] - kf.mask_full).sum())
+            print(f"[kernels] fusion {label} {size}: n_fused {int(k[4])} (plain {int(p[4])}) "
+                  f"claims {grown} xi max|d| {e_xi:.3e} (tol 1e-6) var max|d| {e_var:.3e} "
+                  f"(tol 1e-9) mask and hits equal {masks_eq}, rerun bit-identical {same} "
+                  f"{'OK' if good else 'FAIL'}")
     records["fusion"] = dict(
         name="fusion", route="cuda", source="rgbid_tpu_torch/csrc/fusion.cu",
         replaces="rgbid_tpu/ops/pallas_kernels.py:294", max_abs_err=fus_abs,
     )
-    fargs = (kf.levels[0].xi, kf.var, kf.mask_full, cur[0].xi, cur[0].mask, T, cov, intrs[0],
-             fcfg, guess, gmask)
-    timing.append(("fusion", "480x640", lambda a: fusion.fuse_core(*a),
-                   lambda a: fusion.fuse_core_plain(*a), fargs,
-                   FLOPS_PER_PIXEL["fusion"] * kf.levels[0].xi.numel(), "480x640, growth on"))
+    kf, cur, T, intrs = vga
+    fargs = (kf.levels, kf.var, kf.mask_full, kf.hits, cur[0].xi, cur[0].mask, T, cov, intrs[0],
+             fcfg)
+    # What the kernel must read: six level-0 planes, the coarse inverse
+    # depth the hole guess reads, the pose and the covariance.
+    reads = (kf.levels[0].xi, kf.var, kf.mask_full, kf.hits, cur[0].xi, cur[0].mask, T, cov,
+             *(lv.xi for lv in kf.levels[1:]))
+    timing.append(("fusion", "480x640", lambda a: fusion.fuse_frame(*a),
+                   lambda a: fusion.fuse_frame_plain(*a), fargs,
+                   FLOPS_PER_PIXEL["fusion"] * kf.levels[0].xi.numel(), "480x640, growth on",
+                   reads))
     return ok, records, timing
 
 
@@ -487,10 +514,12 @@ def phase_ic_kernels():
     """The two IC kernels vs their plain versions at the IC path's shapes:
     the fused normal-equation step (lagged: evaluation, solve and pose
     update in one launch) against ``normal_eq_plain`` + ``ic_update``, and
-    the sigma kernel alone, with the same scales in (VGA L0-L3 with the
-    template stride, the geometric channel on and off, the field
-    bf16-rounded and f32, the odd 641x481 camera); then the exact-mode
-    chain, the few-valid case and a rerun."""
+    the scale step alone (one launch, and a rerun), with the same scales in
+    (VGA L0-L3 with the template stride, the geometric channel on and off,
+    the field bf16-rounded and f32, the odd 641x481 camera); then the
+    exact-mode step (scale phases and the normal pass in one cooperative
+    launch) at sigma_iters 1, 2 and 3 with a rerun of each, the few-valid
+    case and a rerun."""
     cfg = ic_config("lagged")
     tc = cfg.tracking
     ok = True
@@ -541,8 +570,10 @@ def phase_ic_kernels():
         k = ks.result
         p = gauss_newton.normal_eq_plain(*a, s2i, s2x, geo, tc.gate_sigmas, True)
         Tp, dp = ic_update(T, p.H, p.b, damping, p.n_valid)
-        # Sigma kernel alone: sums to 1e-5 relative, count exact.
+        # Scale step alone: sums to 1e-5 relative, count exact, rerun
+        # bit-identical.
         kss = kernels.ic_sigma_stats(*a[:4], *a[5:], s2i, s2x, geo)
+        kss2 = kernels.ic_sigma_stats(*a[:4], *a[5:], s2i, s2x, geo)
         ps = gauss_newton.sigma_stats_plain(*a[:4], *a[5:], s2i, s2x, geo)
         torch.cuda.synchronize()
         eH, sH = _scaled_err(k.H, p.H)
@@ -553,7 +584,8 @@ def phase_ic_kernels():
         dT, dd = _step_errs(ks, Tp, dp)
         s_rel = max(_rel(kss.swi, ps.swi), _rel(kss.swx, ps.swx),
                     _rel(kss.sigma2_int, ps.sigma2_int), _rel(kss.sigma2_xi, ps.sigma2_xi))
-        s_exact = bool(kss.n == ps.n) and bool(kss.n == k.n_valid)
+        s_exact = (bool(kss.n == ps.n) and bool(kss.n == k.n_valid)
+                   and all(torch.equal(x, y) for x, y in zip(kss, kss2)))
         good = (sH <= 1.0 and sb <= 1.0 and exact and scal <= 1e-4 and dT <= 1e-6
                 and dd <= 1e-6 and s_rel <= 1e-5 and s_exact)
         ok &= good
@@ -563,22 +595,25 @@ def phase_ic_kernels():
               f"planes {tuple(a[5].shape)} n_valid {int(k.n_valid)} (plain {int(p.n_valid)}) "
               f"H max|d| {eH:.3e} ({sH:.2f} of tol) b max|d| {eb:.3e} ({sb:.2f} of tol) "
               f"err/sigma rel {scal:.1e} (tol 1e-4) T' max|d| {dT:.1e} delta max|d| {dd:.1e} "
-              f"(tol 1e-6); sigma pass sums/scales rel {s_rel:.1e} (tol 1e-5) count exact "
-              f"{s_exact} {'OK' if good else 'FAIL'}")
+              f"(tol 1e-6); scale step alone sums/scales rel {s_rel:.1e} (tol 1e-5) count exact "
+              f"and rerun bit-identical {s_exact} {'OK' if good else 'FAIL'}")
 
-    # The exact-mode chain: k sigma launches, each reading the scales the
-    # previous one wrote, then the fused normal launch. The scale comes out
-    # of a reduction taken in another order than the plain version's, so a
-    # pixel on the inlier gate may flip: inlier fraction within 2 pixels.
+    # The exact-mode step: k scale phases, each weighting with the scales
+    # the previous one produced, then the normal pass, in one cooperative
+    # launch. The scale comes out of a reduction taken in another order
+    # than the plain version's, so a pixel on the inlier gate may flip:
+    # inlier fraction within 2 pixels.
     for label, inputs, lvl, geo, iters in (("L0 bf16 geo", vga, 0, True, 1),
                                            ("L0 bf16 geo", vga, 0, True, 2),
+                                           ("L0 bf16 geo", vga, 0, True, 3),
                                            ("L1 bf16 geo off", vga, 1, False, 2),
                                            ("odd L1 bf16 geo", odd, 1, True, 1)):
         a = level_args(inputs, lvl) + (s2i, s2x, iters, geo, tc.gate_sigmas, "exact")
-        ks = step(a)
+        ks, ks2 = step(a), step(a)
         k = ks.result
         p, Tp, dp = chain(a)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(_flat(ks), _flat(ks2)))
         eH, sH = _scaled_err(k.H, p.H)
         eb, sb = _scaled_err(k.b, p.b)
         n = float(p.n_valid)
@@ -587,14 +622,15 @@ def phase_ic_kernels():
                    _rel(k.sigma2_xi, p.sigma2_xi))
         dT, dd = _step_errs(ks, Tp, dp)
         good = (sH <= 1.0 and sb <= 1.0 and bool(k.n_valid == p.n_valid)
-                and d_inl <= 2.0 / max(n, 1.0) and scal <= 1e-4 and dT <= 1e-6 and dd <= 1e-6)
+                and d_inl <= 2.0 / max(n, 1.0) and scal <= 1e-4 and dT <= 1e-6 and dd <= 1e-6
+                and same)
         ok &= good
         n_abs, n_scaled, pose = max(n_abs, eH, eb), max(n_scaled, sH, sb), max(pose, dT, dd)
-        print(f"[kernels] ic exact chain {label} sigma_iters {iters}: n_valid {int(k.n_valid)} "
+        print(f"[kernels] ic exact step {label} sigma_iters {iters}: n_valid {int(k.n_valid)} "
               f"(plain {int(n)}) H {sH:.2f} of tol, b {sb:.2f} of tol, inlier_frac |d| "
               f"{d_inl:.1e} (tol 2 pixels = {2.0 / max(n, 1.0):.1e}) err/sigma rel {scal:.1e} "
-              f"(tol 1e-4) T' max|d| {dT:.1e} delta max|d| {dd:.1e} (tol 1e-6) "
-              f"{'OK' if good else 'FAIL'}")
+              f"(tol 1e-4) T' max|d| {dT:.1e} delta max|d| {dd:.1e} (tol 1e-6), rerun "
+              f"bit-identical {same} {'OK' if good else 'FAIL'}")
 
     l0 = level_args(vga, 0)
     few = level_args(vga, 0, _few_valid(l0[3]))
@@ -618,17 +654,23 @@ def phase_ic_kernels():
         ),
     }
     # Timed at the level-0 layout (20 of the 40 IRLS iterations per frame):
-    # the fused lagged step, and one sigma pass.
+    # the exact step (sigma_iters as configured, 1), the lagged step, and
+    # one scale step alone. The exact step reads what the lagged one reads.
     n0 = l0[1].numel()
     shape = (f"template {tuple(l0[1].shape)}, field {tuple(l0[4].shape)}, planes "
              f"{tuple(l0[5].shape)}")
+    exact, lagged = l0 + tail + ("exact",), l0 + tail + ("lagged",)
+    sigma_args = l0[:4] + l0[5:] + (s2i, s2x, True)
     timing = [
-        ("ic_normal", "L0", step, lambda a: chain(a)[1:], l0 + tail + ("lagged",),
-         FLOPS_PER_PIXEL["ic_normal"] * n0, shape),
+        ("ic_normal", "L0 exact", step, lambda a: chain(a)[1:], exact,
+         (FLOPS_PER_PIXEL["ic_normal"] + tail[2] * FLOPS_PER_PIXEL["ic_sigma"]) * n0,
+         shape + f", sigma_iters {tail[2]}", exact),
+        ("ic_normal", "L0", step, lambda a: chain(a)[1:], lagged,
+         FLOPS_PER_PIXEL["ic_normal"] * n0, shape, lagged),
         ("ic_sigma", "L0", lambda a: kernels.ic_sigma_stats(*a),
-         lambda a: gauss_newton.sigma_stats_plain(*a), l0[:4] + l0[5:] + (s2i, s2x, True),
+         lambda a: gauss_newton.sigma_stats_plain(*a), sigma_args,
          FLOPS_PER_PIXEL["ic_sigma"] * n0, f"template {tuple(l0[1].shape)}, planes "
-         f"{tuple(l0[5].shape)}"),
+         f"{tuple(l0[5].shape)}", sigma_args),
     ]
     return ok, records, timing
 
@@ -640,17 +682,19 @@ def phase_times(records, timing):
     and takes all the event times before the first profiler window: once
     torch.profiler has been used, the process's kernel launches cost more
     host time. ``timing`` holds (record, level, kernel, plain, args,
-    operations, shape); a fused IRLS kernel is timed as the whole step and
-    its plain version as the plain evaluation plus ``ic_update``."""
+    operations, shape, reads): ``reads`` are the tensors the kernel must
+    read, each counted once in its bound; a fused IRLS kernel is timed as
+    the whole step and its plain version as the plain evaluation plus
+    ``ic_update``."""
     events = []
-    for _, _, kernel, plain, args, _, _ in timing:
+    for _, _, kernel, plain, args, *_ in timing:
         events.append((_time_ms(lambda: plain(args)), _time_ms(lambda: kernel(args)),
                        _time_ms(lambda: kernel(args)), _time_ms(lambda: plain(args))))
-    for (key, level, kernel, plain, args, flops, shape), ev in zip(timing, events):
+    for (key, level, kernel, plain, args, flops, shape, reads), ev in zip(timing, events):
         plain_ms, ms, ms2, plain_ms2 = ev
         dev_ms = _device_ms(lambda: kernel(args))
         plain_dev_ms = _device_ms(lambda: plain(args))
-        bound_ms, bound_by, nbytes = _bound(args, kernel(args), flops)
+        bound_ms, bound_by, nbytes = _bound(reads, kernel(args), flops)
         print(f"[times] {key} {level} ({shape}): kernel {ms:.4f} / {ms2:.4f} ms, plain "
               f"{plain_ms:.4f} / {plain_ms2:.4f} ms per call (CUDA events, launch cost "
               f"included); device time per call (profiler): kernel {dev_ms:.4f} ms, plain "
@@ -703,6 +747,26 @@ def phase_profile(cfg, n: int = 10):
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"[profile]   {e.count / n:7.1f}/frame {e.self_device_time_total / n:9.1f} us/frame "
               f"{e.key[:90]}")
+    # Kernels of each tracked frame, one profiler window per frame, split by
+    # what the frame did after tracking: fuse, switch keyframe, or neither.
+    slam.reset()
+    slam.process_frame(*frames[0])
+    torch.cuda.synchronize()
+    by_kind: dict = {}
+    for f in frames[1:]:
+        with profile(activities=[ProfilerActivity.CUDA]) as one:
+            slam.process_frame(*f)
+            torch.cuda.synchronize()
+        s = slam.stats[-1]
+        kind = "switch" if s.get("switch") else "fused" if s.get("n_fused", 0) > 0 else "other"
+        by_kind.setdefault(kind, []).append(sum(
+            e.count for e in one.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))))
+    # A window that recorded nothing (the profiler drops one, rarely) is
+    # left out of the means and shown in the lists.
+    print("[profile] kernels per tracked frame by kind: " + ", ".join(
+        f"{k} {np.mean([c for c in v if c > 0] or [0]):.1f} (frames {v})"
+        for k, v in sorted(by_kind.items())))
 
 
 def _run_sequence(slam, frames):
@@ -717,24 +781,29 @@ def _run_sequence(slam, frames):
     return slam.poses(), ms
 
 
-# The kernel wrappers whose launch counts the main paths read.
+# The counts the main paths read: (wrapper, attribute). Every wrapper adds
+# one to ``launches`` where it launches its kernel; ``sigma_phases`` counts
+# the scale steps run inside IC launches.
 COUNTERS = {
-    "esm_normal_eq": kernels.esm_residuals_and_normal_eq,
-    "ic_normal_eq": kernels.ic_normal_eq,
-    "ic_sigma_stats": kernels.ic_sigma_stats,
-    "fusion": fusion.fuse_core,
+    "esm_normal_eq": (kernels.esm_residuals_and_normal_eq, "launches"),
+    "ic_normal_eq": (kernels.ic_normal_eq, "launches"),
+    "ic_sigma_stats": (kernels.ic_sigma_stats, "launches"),
+    "ic_sigma_phases": (kernels.ic_normal_eq, "sigma_phases"),
+    "fusion": (fusion.fuse_frame, "launches"),
 }
 
 
 def expected_launches(tc, tracked: int) -> dict:
-    """IRLS kernel launches a run must make: one normal-equation launch per
-    iteration (40 per tracked frame), plus max(sigma_iters, 1) sigma
-    launches per iteration in IC exact mode."""
+    """IRLS counts a run must make: one launch per iteration (40 per tracked
+    frame) in every mode, max(sigma_iters, 1) scale phases inside each IC
+    exact launch, and no standalone scale launch."""
     iters = tracked * sum(tc.iters[: tc.levels])
     if tc.jacobian == "esm":
-        return {"esm_normal_eq": iters, "ic_normal_eq": 0, "ic_sigma_stats": 0}
+        return {"esm_normal_eq": iters, "ic_normal_eq": 0, "ic_sigma_stats": 0,
+                "ic_sigma_phases": 0}
     sigma = iters * max(tc.sigma_iters, 1) if tc.sigma_mode == "exact" else 0
-    return {"esm_normal_eq": 0, "ic_normal_eq": iters, "ic_sigma_stats": sigma}
+    return {"esm_normal_eq": 0, "ic_normal_eq": iters, "ic_sigma_stats": 0,
+            "ic_sigma_phases": sigma}
 
 
 def phase_main(cfg, label: str):
@@ -745,8 +814,8 @@ def phase_main(cfg, label: str):
     _run_sequence(slam, frames[:4])
     slam.reset()
     torch.cuda.synchronize()
-    for wrapper in COUNTERS.values():
-        wrapper.launches = 0
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
     reads0 = slam.host_reads
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -755,7 +824,7 @@ def phase_main(cfg, label: str):
             poses, _ = _run_sequence(slam, frames)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    launches = {name: wrapper.launches for name, wrapper in COUNTERS.items()}
+    launches = {name: getattr(wrapper, attr) for name, (wrapper, attr) in COUNTERS.items()}
     reads = slam.host_reads - reads0
     # Every synchronizing operation PyTorch reports in the run should be
     # one of the deliberate host reads (none inside the IRLS loop).
@@ -780,8 +849,9 @@ def phase_main(cfg, label: str):
     steady = ms[5:]
     counts = ", ".join(f"{k} {launches[k]} (expected {v})" for k, v in expected.items())
     print(f"[main {label}] SlamSystem VGA {TUM_FR1.width}x{TUM_FR1.height}, {len(frames)} "
-          f"frames ({tracked} tracked): launches {counts}, fusion {launches['fusion']}; "
-          f"fused frames {fused}, switches {switches}, lost {lost}, keyframes {n_kf}")
+          f"frames ({tracked} tracked): counts {counts}, fusion launches {launches['fusion']} "
+          f"(expected 1 per fused frame: {fused}); switches {switches}, lost {lost}, "
+          f"keyframes {n_kf}")
     print(f"[main {label}] ATE {ate * 1e3:.3f} mm (bound {ATE_BOUND_M * 1e3:.1f} mm), poses "
           f"finite {finite}, trajectory {len(traj)} rows, map {len(cloud)} points, cloud "
           f"finite {bool(np.isfinite(cloud).all())}, rerun bit-identical {identical}")
@@ -796,7 +866,7 @@ def phase_main(cfg, label: str):
           f"reported by torch.cuda sync-debug mode {syncs}")
     good = (
         all(launches[k] == v for k, v in expected.items())
-        and launches["fusion"] >= 1
+        and launches["fusion"] == fused >= 1
         and switches >= 1
         and lost == 0
         and finite
@@ -808,7 +878,7 @@ def phase_main(cfg, label: str):
         and syncs == reads
     )
     print(f"[main {label}] {'OK' if good else 'FAIL'}")
-    return good, launches
+    return good, launches, float(np.median(steady))
 
 
 def main() -> int:
@@ -824,18 +894,24 @@ def main() -> int:
     records.update(ic_records)
     timing += ic_timing
     runs = [("esm", cfg), ("ic lagged", ic_config("lagged")), ("ic exact", ic_config("exact"))]
-    m_ok, total = True, dict.fromkeys(COUNTERS, 0)
+    m_ok, total, median = True, dict.fromkeys(COUNTERS, 0), {}
     for label, run_cfg in runs:
-        good, launches = phase_main(run_cfg, label)
+        good, launches, median[label] = phase_main(run_cfg, label)
         m_ok &= good
         for k, v in launches.items():
             total[k] += v
+    print(f"[main] ms/frame median, IC exact - IC lagged in this call: "
+          f"{median['ic exact'] - median['ic lagged']:+.2f}")
     phase_times(records, timing)
     phase_profile(cfg)
-    # Launches summed over the three main-path runs.
+    # Counts summed over the three main-path runs. The scale step runs on
+    # the main path as phases of the IC exact launches: its ``launches`` is
+    # that count, and its standalone launches (0 on the main path) stand
+    # beside it.
     for key, counter in (("esm", "esm_normal_eq"), ("fusion", "fusion"),
-                         ("ic_normal", "ic_normal_eq"), ("ic_sigma", "ic_sigma_stats")):
+                         ("ic_normal", "ic_normal_eq"), ("ic_sigma", "ic_sigma_phases")):
         records[key]["launches"] = total[counter]
+    records["ic_sigma"]["standalone_launches"] = total["ic_sigma_stats"]
     kern = [records[k] for k in ("esm", "fusion", "ic_normal", "ic_sigma")]
     print(json.dumps({"kernels": kern}))
     if not (k_ok and ic_ok and m_ok):

@@ -197,7 +197,7 @@ esm_kernel(EsmParams p, const float* __restrict__ T, const float* __restrict__ s
     esm_pixel<C>(p, i, T, s2i, s2x, kf_int, px, py, pz, kf_mask, kf_grads, cur, acc);
   }
   irls::block_reduce<kNormalSums>(acc, partials + blockIdx.x * kNormalSums);
-  irls::finish_iteration(partials, counter, s2i_p, s2x_p, p.use_geometric, /*lagged=*/1, T,
+  irls::finish_iteration(partials, counter, s2i, s2x, p.use_geometric, /*lagged=*/1, T,
                          p.damping, out);
 }
 

@@ -1,206 +1,139 @@
-// Inverse-depth fusion with uncertainty propagation and validity growth
-// (K8 + K9), one thread per level-0 keyframe pixel.
+// Inverse-depth fusion of one frame into the keyframe (K8 + K9), with the
+// hole guess, validity growth, hit counts and mask update, in one launch.
 //
 // Replaces: rgbid_tpu/ops/pallas_kernels.py, _fusion_kernel (entry
-// fusion_pallas). On the TPU the hypothesis choice, warp_points and the
-// corner gather of the current frame stayed in XLA (mapping/fusion.py)
-// and the kernel read five pre-gathered planes; here each thread picks its
-// depth hypothesis (the fused estimate, or the coarse-pyramid guess for a
-// hole pixel), warps it into the current frame, gathers the current
-// inverse depth and validity, re-expresses the observation in keyframe
-// coordinates, propagates sensor variance and the pose covariance (in the
-// [z, wx, wy] subspace), gates on gate_k, runs the Kalman update, claims
-// guess-consistent hole pixels, and writes xi', var', the fuse mask and the
-// claim mask. A block sums its fuse mask into one partial; a one-block
-// second pass adds the partials in a fixed order into n_fused.
+// fusion_pallas), and what the JAX package ran around it in XLA
+// (rgbid_tpu/mapping/fusion.py: hole_guess, the hypothesis choice,
+// warp_points, the corner gather, _rigid_inverse, and fuse_and_grow's hit
+// and mask update; rgbid_tpu/tracking/step.py: the pose-noise floor added
+// to the tracker's covariance). Each thread takes four consecutive
+// level-0 pixels and runs fusion::pixel (fusion_pixel.cuh) on each; it
+// writes xi', var', mask' = max(mask, claim) and hits' = claim ? 1 :
+// hits + fuse. Every block counts its fused pixels into one partial; the
+// last block to arrive sums the partials in block-index order into
+// n_fused (irls::sum_rows). No fuse or claim plane reaches device memory.
 //
-// What bounds it on this card: at VGA it reads 7-9 planes and writes 4
-// (about 15 MB), a few microseconds of bandwidth, once per fused frame, so
-// launch latency bounds it. The design keeps the whole pipeline in one
-// pass with no intermediate planes in device memory, and reads the pose,
-// its inverse and the covariance from device memory (no host read).
+// What bounds it on this card: bytes. At VGA a fused frame reads six
+// level-0 planes (estimate, variance, mask, hits, and the current frame's
+// inverse depth and mask) plus the coarse inverse-depth levels, and writes
+// four planes: 12.7 MB, 3.8 us at 3.35 TB/s, once per fused frame. The
+// design moves the level-0 planes as 16-byte loads and stores (four pixels
+// a thread; (u, v) come from the flat index, so an odd width needs no row
+// alignment, and the last n % 4 pixels take a scalar tail), reads the
+// gathered and coarse planes through the read-only path, runs a
+// grid-stride loop over at most irls::kMinBlocksPerSm blocks per SM, and
+// makes one launch where the two-launch design before it also wrote and
+// read fuse and claim planes and ran ~40 small PyTorch ops around it.
 //
-// Determinism: no atomics; the count is summed in a fixed order.
-//
-// Float order: the per-pixel arithmetic follows the plain PyTorch version
-// (mapping/fusion.py) operation by operation and the build disables FMA
-// contraction (-fmad=false), so the masks and n_fused equal the plain
-// version's exactly.
+// Determinism: the one atomic counts block arrivals; the count is summed
+// in block-index order, and no float is added atomically.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-// Must match FusionParams in ops/_build.py field by field.
-struct FusionParams {
-  int h, w;             // level-0 plane size
-  int grow;             // validity growth on (guess/gmask are read)
-  float fx, fy, cx, cy;
-  float inv_fx, inv_fy; // 1/fx, 1/fy
-  float umax, vmax;     // w - 1.001, h - 1.001
-  float sensor_var;     // sensor_sigma_xi^2
-  float gate_k2;        // gate_k^2
-  float min_var, max_var;
-  float claim_tol;
-  float claim_infl;     // claim_var_inflation
-};
+#include "fusion_pixel.cuh"
+#include "irls_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using irls::kThreads;
 
-__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
-__device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
-
-__global__ void __launch_bounds__(kThreads)
-fusion_kernel(FusionParams p, const float* __restrict__ Tck, const float* __restrict__ Tkc,
-              const float* __restrict__ cov, const float* __restrict__ kf_xi,
-              const float* __restrict__ kf_var, const float* __restrict__ kf_mask,
-              const float* __restrict__ cur_xi, const float* __restrict__ cur_mask,
-              const float* __restrict__ guess, const float* __restrict__ gmask,
-              float* __restrict__ xi_out, float* __restrict__ var_out,
-              float* __restrict__ fuse_out, float* __restrict__ claim_out,
-              float* __restrict__ partials) {
-  __shared__ float red[kThreads];
-  const int n = p.h * p.w;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  float fuse = 0.f;
-  if (i < n) {
-    const float kfm = kf_mask[i];
-    const float kx = kf_xi[i];
-    const float kv = kf_var[i];
-    float xi_eff = kx, mask_eff = kfm, gs = 0.f, gm = 0.f;
-    if (p.grow) {
-      gs = guess[i];
-      gm = gmask[i];
-      xi_eff = kfm > 0.f ? kx : gs;
-      mask_eff = fmaxf(kfm, gm);
-    }
-    // warp_points (ops/warp.py): backproject the hypothesis, move it by T_ck.
-    const float u = static_cast<float>(i % p.w);
-    const float v = static_cast<float>(i / p.w);
-    const float z = 1.0f / clamp_min(xi_eff, 1e-8f);
-    const float x = (u - p.cx) * p.inv_fx * z;
-    const float y = (v - p.cy) * p.inv_fy * z;
-    const float xp = Tck[0] * x + Tck[1] * y + Tck[2] * z + Tck[3];
-    const float yp = Tck[4] * x + Tck[5] * y + Tck[6] * z + Tck[7];
-    const float zp = Tck[8] * x + Tck[9] * y + Tck[10] * z + Tck[11];
-    const float front = zp > 1e-6f ? 1.f : 0.f;
-    const float rho = 1.0f / clamp_min(zp, 1e-6f);
-    const float up = p.fx * xp * rho + p.cx;
-    const float vp = p.fy * yp * rho + p.cy;
-    const float valid0 = mask_eff * front;
-
-    // Corner gather of [cur_xi, cur_mask] (sample_tracker_planes).
-    const float inb = (up >= 0.f && up <= p.umax && vp >= 0.f && vp <= p.vmax) ? 1.f : 0.f;
-    const float uc = clamp_max(clamp_min(up, 0.f), p.umax);
-    const float vc = clamp_max(clamp_min(vp, 0.f), p.vmax);
-    const int u0 = min(max(static_cast<int>(floorf(uc)), 0), p.w - 1);
-    const int v0 = min(max(static_cast<int>(floorf(vc)), 0), p.h - 1);
-    const float fu = uc - static_cast<float>(u0);
-    const float fv = vc - static_cast<float>(v0);
-    const int u1 = min(u0 + 1, p.w - 1);
-    const int v1 = min(v0 + 1, p.h - 1);
-    const int i00 = v0 * p.w + u0, i01 = v0 * p.w + u1;
-    const int i10 = v1 * p.w + u0, i11 = v1 * p.w + u1;
-    const float w00 = (1.f - fu) * (1.f - fv);
-    const float w01 = fu * (1.f - fv);
-    const float w10 = (1.f - fu) * fv;
-    const float w11 = fu * fv;
-    const float xi_obs_cur =
-        cur_xi[i00] * w00 + cur_xi[i01] * w01 + cur_xi[i10] * w10 + cur_xi[i11] * w11;
-    const float mask_ok = cur_mask[i00] * cur_mask[i01] * cur_mask[i10] * cur_mask[i11];
-    float valid = valid0 * inb * mask_ok * (xi_obs_cur > 1e-6f ? 1.f : 0.f);
-
-    // Observation in keyframe coordinates (T_kc = inverse of T_ck).
-    const float zc = 1.0f / clamp_min(xi_obs_cur, 1e-6f);
-    const float dir_x = (up - p.cx) * p.inv_fx;
-    const float dir_y = (vp - p.cy) * p.inv_fy;
-    const float Xk = (Tkc[0] * dir_x + Tkc[1] * dir_y + Tkc[2]) * zc + Tkc[3];
-    const float Yk = (Tkc[4] * dir_x + Tkc[5] * dir_y + Tkc[6]) * zc + Tkc[7];
-    const float Zk = (Tkc[8] * dir_x + Tkc[9] * dir_y + Tkc[10]) * zc + Tkc[11];
-    valid = valid * (Zk > 1e-6f ? 1.f : 0.f);
-    const float zk = clamp_min(Zk, 1e-6f);
-    const float xi_obs_kf = valid > 0.f ? 1.0f / zk : 0.f;
-
-    // K9a: sensor noise through the frame change.
-    const float r3dir = Tkc[8] * dir_x + Tkc[9] * dir_y + Tkc[10];
-    const float xc = clamp_min(xi_obs_cur, 1e-6f);
-    const float dxi = r3dir / (zk * zk * (xc * xc));
-    const float var_sensor = dxi * dxi * p.sensor_var;
-    // K9b: pose covariance through J = -xi^2 [0, 0, 1, Yk, -Xk, 0].
-    const float xi2 = xi_obs_kf * xi_obs_kf;
-    const float j2 = -xi2;
-    const float j3 = j2 * Yk;
-    const float j4 = xi2 * Xk;
-    const float var_pose = j2 * (cov[14] * j2 + cov[15] * j3 + cov[16] * j4) +
-                           j3 * (cov[20] * j2 + cov[21] * j3 + cov[22] * j4) +
-                           j4 * (cov[26] * j2 + cov[27] * j3 + cov[28] * j4);
-    const float var_obs = clamp_min(var_sensor + var_pose, p.min_var);
-
-    // K8: gate + Kalman update.
-    const float resid = xi_obs_kf - kx;
-    const float gate = (resid * resid <= (kv + var_obs) * p.gate_k2) ? 1.f : 0.f;
-    fuse = valid * kfm * gate;
-    const float k_gain = kv / clamp_min(kv + var_obs, 1e-12f);
-    float xi_new = fuse > 0.f ? kx + k_gain * resid : kx;
-    float var_new = fuse > 0.f ? (1.f - k_gain) * kv : kv;
-    var_new = clamp_max(clamp_min(var_new, p.min_var), p.max_var);
-
-    // Validity growth: a hole pixel claims a guess-consistent observation.
-    float claim = 0.f;
-    if (p.grow) {
-      const float consistent = fabsf(xi_obs_kf - gs) <= p.claim_tol ? 1.f : 0.f;
-      claim = (kfm < 0.5f ? 1.f : 0.f) * gm * valid * consistent;
-      if (claim > 0.f) {
-        xi_new = xi_obs_kf;
-        var_new = clamp_max(clamp_min(var_obs * p.claim_infl, p.min_var), p.max_var);
-      }
-    }
-    xi_out[i] = xi_new;
-    var_out[i] = var_new;
-    fuse_out[i] = fuse;
-    claim_out[i] = claim;
-  }
-  red[threadIdx.x] = fuse;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) partials[blockIdx.x] = red[0];
+__device__ __forceinline__ float4 ro4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-__global__ void __launch_bounds__(kThreads)
-sum_partials(const float* __restrict__ partials, int n_blocks, float* __restrict__ out) {
-  __shared__ float red[kThreads];
-  float s = 0.f;
-  for (int b = threadIdx.x; b < n_blocks; b += kThreads) s += partials[b];
-  red[threadIdx.x] = s;
+__device__ __forceinline__ void put4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// Vec: every level-0 plane is 16-byte aligned, so a full quad of pixels
+// moves as one float4 per plane.
+template <bool Vec>
+__global__ void __launch_bounds__(kThreads, irls::kMinBlocksPerSm)
+fusion_kernel(FusionParams p, const float* __restrict__ T, const float* __restrict__ cov,
+              const float* __restrict__ kf_xi, const float* __restrict__ kf_var,
+              const float* __restrict__ kf_mask, const float* __restrict__ kf_hits,
+              const float* __restrict__ cur_xi, const float* __restrict__ cur_mask,
+              float* __restrict__ xi_out, float* __restrict__ var_out,
+              float* __restrict__ mask_out, float* __restrict__ hits_out,
+              float* __restrict__ partials, unsigned int* __restrict__ counter,
+              float* __restrict__ n_fused) {
+  __shared__ fusion::Pose pose;
+  if (threadIdx.x == 0) fusion::load_pose(p, T, cov, pose);
   __syncthreads();
-  for (int k = kThreads / 2; k > 0; k >>= 1) {
-    if (threadIdx.x < k) red[threadIdx.x] += red[threadIdx.x + k];
-    __syncthreads();
+  const int n = p.h * p.w;
+  const int quads = (n + 3) / 4;
+  float count = 0.f;
+  for (int q = blockIdx.x * kThreads + threadIdx.x; q < quads; q += gridDim.x * kThreads) {
+    const int i = 4 * q;
+    // (u, v) of the quad's first pixel; the rest follow without a division.
+    int iv = i / p.w, iu = i - iv * p.w;
+    if (Vec && i + 4 <= n) {
+      const float4 x = ro4(kf_xi + i), v = ro4(kf_var + i);
+      const float4 m = ro4(kf_mask + i), h = ro4(kf_hits + i);
+      const fusion::Out o0 = fusion::pixel(p, pose, iu, iv, x.x, v.x, m.x, h.x, cur_xi, cur_mask);
+      fusion::next(p, iu, iv);
+      const fusion::Out o1 = fusion::pixel(p, pose, iu, iv, x.y, v.y, m.y, h.y, cur_xi, cur_mask);
+      fusion::next(p, iu, iv);
+      const fusion::Out o2 = fusion::pixel(p, pose, iu, iv, x.z, v.z, m.z, h.z, cur_xi, cur_mask);
+      fusion::next(p, iu, iv);
+      const fusion::Out o3 = fusion::pixel(p, pose, iu, iv, x.w, v.w, m.w, h.w, cur_xi, cur_mask);
+      put4(xi_out + i, o0.xi, o1.xi, o2.xi, o3.xi);
+      put4(var_out + i, o0.var, o1.var, o2.var, o3.var);
+      put4(mask_out + i, o0.mask, o1.mask, o2.mask, o3.mask);
+      put4(hits_out + i, o0.hits, o1.hits, o2.hits, o3.hits);
+      count += o0.fuse + o1.fuse + o2.fuse + o3.fuse;
+    } else {
+      for (int k = i; k < i + 4 && k < n; ++k, fusion::next(p, iu, iv)) {
+        const fusion::Out o = fusion::pixel(p, pose, iu, iv, kf_xi[k], kf_var[k], kf_mask[k],
+                                            kf_hits[k], cur_xi, cur_mask);
+        xi_out[k] = o.xi;
+        var_out[k] = o.var;
+        mask_out[k] = o.mask;
+        hits_out[k] = o.hits;
+        count += o.fuse;
+      }
+    }
   }
-  if (threadIdx.x == 0) out[0] = red[0];
+  // Counts of 0/1 values stay exact in float32 up to 2^24 pixels.
+  const float acc[1] = {count};
+  irls::block_reduce<1>(acc, partials + blockIdx.x);
+  if (!irls::last_to_arrive(counter, 1)) return;
+  __shared__ float total[1];
+  irls::sum_rows<1>(partials, gridDim.x, total);
+  if (threadIdx.x == 0) {
+    *n_fused = total[0];
+    *counter = 0u;
+  }
 }
 
 }  // namespace
 
-extern "C" int fusion_launch(FusionParams p, const float* Tck, const float* Tkc,
-                             const float* cov, const float* kf_xi, const float* kf_var,
-                             const float* kf_mask, const float* cur_xi,
-                             const float* cur_mask, const float* guess, const float* gmask,
-                             float* xi_out, float* var_out, float* fuse_out,
-                             float* claim_out, float* partials, float* n_fused,
+// One fused frame. ``partials`` holds max_blocks floats; ``counter`` is 0
+// on entry and is 0 again when the launch ends.
+extern "C" int fusion_launch(FusionParams p, int max_blocks, const float* T, const float* cov,
+                             const float* kf_xi, const float* kf_var, const float* kf_mask,
+                             const float* kf_hits, const float* cur_xi, const float* cur_mask,
+                             float* xi_out, float* var_out, float* mask_out, float* hits_out,
+                             float* partials, unsigned int* counter, float* n_fused,
                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_blocks = (p.h * p.w + kThreads - 1) / kThreads;
-  if (n_blocks > 0) {
-    fusion_kernel<<<n_blocks, kThreads, 0, st>>>(p, Tck, Tkc, cov, kf_xi, kf_var, kf_mask,
-                                                 cur_xi, cur_mask, guess, gmask, xi_out,
-                                                 var_out, fuse_out, claim_out, partials);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if (p.n_coarse < 0 || p.n_coarse > fusion::kMaxCoarse) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  sum_partials<<<1, kThreads, 0, st>>>(partials, n_blocks, n_fused);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int quads = (p.h * p.w + 3) / 4;
+  const int blocks = max(1, min((quads + kThreads - 1) / kThreads, max_blocks));
+  const float* planes[] = {kf_xi, kf_var, kf_mask, kf_hits, xi_out, var_out, mask_out, hits_out};
+  bool aligned = true;
+  for (const float* q : planes) aligned &= reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  if (aligned) {
+    fusion_kernel<true><<<blocks, kThreads, 0, st>>>(p, T, cov, kf_xi, kf_var, kf_mask, kf_hits,
+                                                     cur_xi, cur_mask, xi_out, var_out, mask_out,
+                                                     hits_out, partials, counter, n_fused);
+  } else {
+    fusion_kernel<false><<<blocks, kThreads, 0, st>>>(p, T, cov, kf_xi, kf_var, kf_mask, kf_hits,
+                                                      cur_xi, cur_mask, xi_out, var_out, mask_out,
+                                                      hits_out, partials, counter, n_fused);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,10 @@
-// Device code shared by the IRLS kernels (esm_normal_eq.cu, ic_normal_eq.cu):
-// the per-pixel warp and 4-corner gather, the fixed-order block reduction,
-// and the end of an iteration in the last block to finish (the cross-block
-// sum, the normal-equation finalize, the 6x6 solve and the pose update of
-// irls_solve.cuh).
+// Device code shared by the hand kernels (esm_normal_eq.cu, ic_normal_eq.cu,
+// fusion.cu): the per-pixel warp and 4-corner gather, the fixed-order block
+// reduction, the last-block pattern (an arrival counter, then the
+// cross-block sum in block-index order), a grid-wide barrier for
+// cooperative launches, and the end of an IRLS iteration in the last block
+// to finish (the normal-equation finalize, the 6x6 solve and the pose
+// update of irls_solve.cuh).
 //
 // Float order: every function follows the plain PyTorch versions
 // (ops/warp.py, ops/gauss_newton.py) operation by operation; the build
@@ -149,6 +151,93 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ partials,
   __syncthreads();
 }
 
+// Every thread of the block calls it once the block's row of partials is
+// written (by threads < row_threads). The block counts its arrival on
+// ``counter``; true in every thread of the last block to arrive, which then
+// sees every block's row. The writers make their row visible to the whole
+// card before the block counts, so the count is the only atomic and the
+// rows are summed in block-index order whichever block arrives last. The
+// caller's last block sets ``counter`` back to 0 before the launch ends.
+__device__ __forceinline__ bool last_to_arrive(unsigned int* __restrict__ counter,
+                                               int row_threads) {
+  __shared__ bool last;
+  if (threadIdx.x < row_threads) __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  return last;
+}
+
+// Sums short (n_rows, N) rows (N <= 3: the sigma and fusion kernels) with
+// every thread of the block: thread t adds rows t, t + kThreads, ... (its
+// loads all in flight at once, read through L2), then the block's
+// fixed-order reduction. sum_partials would leave all but N lanes of each
+// warp idle and pay one L2 round trip per few rows. Every thread must call
+// it; on return ``sums`` (shared, N floats) is complete. The order is fixed,
+// so the sums are the same from run to run.
+template <int N>
+__device__ __forceinline__ void sum_rows(const float* __restrict__ rows, int n_rows,
+                                         float* sums) {
+  float v[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = 0.f;
+  for (int b = threadIdx.x; b < n_rows; b += kThreads) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] += __ldcg(rows + b * N + k);
+  }
+  __syncthreads();  // an earlier block_reduce<N> of this block is done with its shared memory
+  block_reduce<N>(v, sums);
+  __syncthreads();
+}
+
+// A grid-wide barrier in which the last block to arrive does work before
+// the others go on, for a cooperative launch (cudaLaunchCooperativeKernel,
+// so that every block is resident). Written by hand rather than with
+// cooperative_groups::this_grid().sync(): its state is two words of the
+// kernels' own workspace (``arrived``, which counts arrivals over the
+// launch and is 0 between launches, and ``generation``, which counts
+// barriers and is never reset), its memory ordering is last_to_arrive's
+// fence-then-count, the release is one atomic, the last block's work needs
+// no second barrier, and the build needs no separate compilation (-rdc).
+// Every thread of every block calls grid_arrive once the block's writes
+// are done: it returns the generation read before arriving, and
+// ``last`` is true in the last block. The last block reads what every block
+// wrote (through L2, __ldcg), does its work and calls grid_release; every
+// other block calls grid_wait with the returned generation, after which it
+// sees what the last block wrote (read it with __ldcg).
+__device__ __forceinline__ unsigned int grid_arrive(unsigned int* __restrict__ arrived,
+                                                    unsigned int* __restrict__ generation,
+                                                    bool& last) {
+  __shared__ bool s_last;
+  __shared__ unsigned int s_seen;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // Read before arriving: the generation cannot move until this block
+    // has arrived too.
+    s_seen = *static_cast<volatile unsigned int*>(generation);
+    s_last = (atomicAdd(arrived, 1u) + 1u) % gridDim.x == 0u;
+  }
+  __syncthreads();
+  last = s_last;
+  return s_seen;
+}
+
+__device__ __forceinline__ void grid_release(unsigned int* __restrict__ generation) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(generation, 1u);
+}
+
+__device__ __forceinline__ void grid_wait(unsigned int* __restrict__ generation,
+                                          unsigned int seen) {
+  if (threadIdx.x == 0) {
+    while (*static_cast<volatile unsigned int*>(generation) == seen) __nanosleep(20);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 // Result layout of one IRLS launch (ops/kernels.py reads it):
 // [0:36] H (6x6, per valid pixel), [36:42] b, [42] sigma2_int,
 // [43] sigma2_xi, [44] error, [45] n_valid, [46] inlier_frac, [47] 0,
@@ -157,27 +246,18 @@ constexpr int kResult = 48;
 constexpr int kOut = kResult + 16 + 6;
 
 // The end of one IRLS iteration. Every thread of every block calls it once
-// its block's row of normal-equation partials is written. Each block
-// counts its arrival on ``counter``; the last block to arrive sums every
-// block's row in block-index order, writes the result (with ``lagged`` the
-// scales are the updated ones for the next iteration, a disabled geometric
-// channel keeping its incoming scale; without it, the scales the pass
-// weighted with), then one thread solves the 6x6 system and updates the
-// pose, and the counter is reset to 0 for the next launch. The counter only
-// counts arrivals, so the sums, and the output, do not depend on which
-// block finishes last.
-__device__ __forceinline__ void finish_iteration(
-    const float* __restrict__ partials, unsigned int* __restrict__ counter,
-    const float* __restrict__ s2i_in, const float* __restrict__ s2x_in, int use_geometric,
-    int lagged, const float* __restrict__ T, float damping, float* __restrict__ out) {
-  __shared__ bool last;
-  // The threads that wrote this block's row make it visible to the whole
-  // card before the block counts its arrival.
-  if (threadIdx.x < kNormalSums) __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
+// its block's row of normal-equation partials is written. The last block
+// to arrive (last_to_arrive) sums every block's row in block-index order,
+// writes the result (with ``lagged`` the scales are the updated ones for
+// the next iteration, a disabled geometric channel keeping ``s2x``;
+// without it, ``s2i`` and ``s2x``, the scales the pass weighted with),
+// then one thread solves the 6x6 system and updates the pose. Returns true
+// in the last block.
+__device__ __forceinline__ bool finish_iteration(
+    const float* __restrict__ partials, unsigned int* __restrict__ counter, float s2i,
+    float s2x, int use_geometric, int lagged, const float* __restrict__ T, float damping,
+    float* __restrict__ out) {
+  if (!last_to_arrive(counter, kNormalSums)) return false;
 
   __shared__ float sums[kNormalSums];
   __shared__ float res[kResult];
@@ -191,9 +271,9 @@ __device__ __forceinline__ void finish_iteration(
   } else if (t < 42) {
     res[t] = sums[21 + (t - 36)] * inv_n;
   } else if (t == 42) {
-    res[t] = lagged ? clamp_min(sums[30] * inv_n, 1e-12f) : *s2i_in;
+    res[t] = lagged ? clamp_min(sums[30] * inv_n, 1e-12f) : s2i;
   } else if (t == 43) {
-    res[t] = (lagged && use_geometric) ? clamp_min(sums[31] * inv_n, 1e-12f) : *s2x_in;
+    res[t] = (lagged && use_geometric) ? clamp_min(sums[31] * inv_n, 1e-12f) : s2x;
   } else if (t == 44) {
     res[t] = sums[27] * inv_n;
   } else if (t == 45) {
@@ -209,6 +289,7 @@ __device__ __forceinline__ void finish_iteration(
     solve_update(res, res + 36, damping, res[45], T, out + kResult, out + kResult + 16);
     *counter = 0u;
   }
+  return true;
 }
 
 }  // namespace

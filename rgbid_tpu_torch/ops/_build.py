@@ -27,7 +27,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in ("esm_normal_eq.cu", "fusion.cu", "ic_normal_eq.cu"))
-HEADERS = tuple(_PKG / "csrc" / f for f in ("irls_common.cuh", "irls_solve.cuh"))
+HEADERS = tuple(_PKG / "csrc" / f
+                for f in ("fusion_pixel.cuh", "irls_common.cuh", "irls_solve.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "rgbid_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -82,13 +83,19 @@ class IcParams(ctypes.Structure):
     ]
 
 
+MAX_COARSE = 7  # fusion::kMaxCoarse in csrc/fusion_pixel.cuh
+
+
 class FusionParams(ctypes.Structure):
-    """By-value parameters of ``fusion_launch`` (csrc/fusion.cu)."""
+    """By-value parameters of ``fusion_launch`` (csrc/fusion_pixel.cuh)."""
 
     _fields_ = [
         ("h", ctypes.c_int),
         ("w", ctypes.c_int),
         ("grow", ctypes.c_int),
+        ("n_coarse", ctypes.c_int),
+        ("cov_rs", ctypes.c_int),
+        ("cov_cs", ctypes.c_int),
         ("fx", ctypes.c_float),
         ("fy", ctypes.c_float),
         ("cx", ctypes.c_float),
@@ -103,6 +110,11 @@ class FusionParams(ctypes.Structure):
         ("max_var", ctypes.c_float),
         ("claim_tol", ctypes.c_float),
         ("claim_infl", ctypes.c_float),
+        ("trans_var", ctypes.c_float),
+        ("rot_var", ctypes.c_float),
+        ("ch", ctypes.c_int * MAX_COARSE),
+        ("cw", ctypes.c_int * MAX_COARSE),
+        ("coarse", ctypes.c_void_p * MAX_COARSE),
     ]
 
 
@@ -118,11 +130,11 @@ class Library:
         I = ctypes.c_int
         lib.esm_irls_launch.argtypes = [EsmParams, I, I] + [P] * 14
         lib.esm_irls_launch.restype = I
-        lib.fusion_launch.argtypes = [FusionParams] + [P] * 17
-        lib.fusion_launch.restype = ctypes.c_int
-        lib.ic_sigma_launch.argtypes = [IcParams] + [P] * 14
-        lib.ic_sigma_launch.restype = ctypes.c_int
-        lib.ic_irls_launch.argtypes = [IcParams, I, I] + [P] * 16
+        lib.fusion_launch.argtypes = [FusionParams, I] + [P] * 16
+        lib.fusion_launch.restype = I
+        lib.ic_sigma_launch.argtypes = [IcParams, I] + [P] * 15
+        lib.ic_sigma_launch.restype = I
+        lib.ic_irls_launch.argtypes = [IcParams, I, I, I] + [P] * 17
         lib.ic_irls_launch.restype = I
         self.esm_irls_launch = lib.esm_irls_launch
         self.fusion_launch = lib.fusion_launch
@@ -204,13 +216,14 @@ def library() -> Library:
     return _LIBRARY
 
 
-def require(t, name: str, device, shape=None) -> None:
-    """Check a kernel argument: device, float32, contiguous, shape."""
+def require(t, name: str, device, shape=None, contiguous: bool = True) -> None:
+    """Check a kernel argument: device, float32, contiguous (unless the
+    kernel takes its strides), shape."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -7,25 +7,33 @@
   (kernel ``_esm_kernel``) followed by ``ic_update``.
   ``esm_residuals_and_normal_eq`` makes the same launch and returns the
   evaluation alone.
-- ``ic_irls_step``: one IC IRLS iteration: in exact sigma mode first
-  ``max(sigma_iters, 1)`` launches of the scale kernel (``ic_sigma_stats``,
-  counterpart of ``sigma_stats`` / ``_sigma_kernel``), then one launch of
-  the normal-equation kernel with the solve and pose update (counterpart of
-  ``normal_eq`` / ``_normal_kernel`` followed by ``ic_update``), both in
-  ``csrc/ic_normal_eq.cu``. ``ic_normal_eq`` and ``residuals_and_normal_eq``
-  make the same launches and return the evaluation alone.
+- ``ic_irls_step``: one IC IRLS iteration as one launch of
+  ``csrc/ic_normal_eq.cu``: the normal-equation pass with the solve and
+  pose update (counterpart of ``normal_eq`` / ``_normal_kernel`` followed
+  by ``ic_update``), in exact sigma mode preceded inside the same
+  cooperative launch by ``max(sigma_iters, 1)`` phases of the Student-t
+  scale step (counterpart of ``sigma_stats`` / ``_sigma_kernel``).
+  ``ic_normal_eq`` and ``residuals_and_normal_eq`` make the same launch and
+  return the evaluation alone.
+- ``ic_sigma_stats``: one scale step alone, one launch (used by the checks;
+  the tracker runs its scale steps inside ``ic_irls_step``).
 
 On a CPU tensor each runs its plain PyTorch version (ops/gauss_newton.py),
 and a step adds ``ic_update``; on a CUDA tensor it launches its kernel or
 raises. There is no other path: no fallback, no switch.
 ``esm_residuals_and_normal_eq.launches``, ``ic_normal_eq.launches`` and
 ``ic_sigma_stats.launches`` count kernel launches, whichever wrapper made
-them.
+them; ``ic_normal_eq.sigma_phases`` counts the scale steps run inside IC
+launches.
 
-The fused launches share one per-card workspace: a (max_blocks, 32) block
-partials buffer and an arrival counter that each launch leaves at 0. Its
-launches go on the current stream, one after the other; two launches on two
-streams at once would share the workspace, and the port never makes them.
+The launches share one per-card workspace (``workspace``): a (max_blocks,
+32) block partials buffer, a (max_blocks + 1, 3) buffer of scale-step rows
+and their published sums, and three counter words (the last-block arrival
+count and the exact-mode grid barrier's arrivals, both 0 between launches,
+and its generation). The fusion kernel (mapping/fusion.py) uses it too.
+Launches go on the current stream, one after the other; two launches on
+two streams at once would share the workspace, and the port never makes
+them.
 
 The TPU-only tiling of the Pallas wrappers (row tiles, padding to 8 or 16
 rows) is not carried over: a grid-stride loop over template pixels needs
@@ -44,11 +52,10 @@ from .gauss_newton import IrlsResult, SigmaStats, ic_update, normal_eq_plain, si
 from .gauss_newton import esm_residuals_and_normal_eq as esm_residuals_and_normal_eq_plain
 from .gauss_newton import residuals_and_normal_eq as residuals_and_normal_eq_plain
 
-_THREADS = 256  # irls::kThreads in csrc/irls_common.cuh
 _SUMS = 32  # irls::kNormalSums
 _SIGMA_SUMS = 3
 _OUT = 48 + 16 + 6  # irls::kOut: result, T', delta
-_BLOCKS_PER_SM = 3  # irls::kMinBlocksPerSm: the fused kernels' grid per SM at most
+_BLOCKS_PER_SM = 3  # irls::kMinBlocksPerSm: the kernels' grid per SM at most
 
 
 class IrlsStep(NamedTuple):
@@ -60,26 +67,28 @@ class IrlsStep(NamedTuple):
     delta: torch.Tensor  # (6,)
 
 
-class _Workspace(NamedTuple):
+class Workspace(NamedTuple):
     max_blocks: int
     partials: torch.Tensor  # (max_blocks, 32) float32
-    counter: torch.Tensor  # (1,) int32, 0 between launches
+    sigma_rows: torch.Tensor  # (max_blocks + 1, 3) float32: block rows, then the step's sums
+    counter: torch.Tensor  # (3,) int32: arrivals, barrier arrivals, barrier generation
 
 
 _WORKSPACES: dict = {}
 
 
-def _workspace(dev: torch.device) -> _Workspace:
-    """The fused launches' workspace on one card, made once."""
+def workspace(dev: torch.device) -> Workspace:
+    """The kernels' workspace on one card, made once."""
     key = dev.index if dev.index is not None else torch.cuda.current_device()
     ws = _WORKSPACES.get(key)
     if ws is None:
         sms = torch.cuda.get_device_properties(key).multi_processor_count
         max_blocks = _BLOCKS_PER_SM * sms
-        ws = _Workspace(
+        ws = Workspace(
             max_blocks,
             torch.empty((max_blocks, _SUMS), dtype=torch.float32, device=dev),
-            torch.zeros((1,), dtype=torch.int32, device=dev),
+            torch.empty((max_blocks + 1, _SIGMA_SUMS), dtype=torch.float32, device=dev),
+            torch.zeros((3,), dtype=torch.int32, device=dev),
         )
         _WORKSPACES[key] = ws
     return ws
@@ -129,7 +138,7 @@ def _esm_cuda(
     require(sigma2_xi, "sigma2_xi", dev, ())
 
     lib = _build.library()
-    ws = _workspace(dev)
+    ws = workspace(dev)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
     p = _build.EsmParams(
         n=th * tw, h=h, w=w, use_geometric=int(bool(use_geometric)),
@@ -248,16 +257,15 @@ def _ic_sigma_cuda(T, kf_int, kf_points, kf_mask, cur_int, cur_xi, cur_mask, int
     _ic_check(T, kf_int, kf_points, kf_mask, cur_int, cur_xi, cur_mask, sigma2_int, sigma2_xi)
     dev = T.device
     n = kf_int.numel()
-    n_blocks = (n + _THREADS - 1) // _THREADS
-    partials = torch.empty((max(n_blocks, 1), _SIGMA_SUMS), dtype=torch.float32, device=dev)
+    ws = workspace(dev)
     out = torch.empty((5,), dtype=torch.float32, device=dev)
     Px, Py, Pz = kf_points
     status = _build.library().ic_sigma_launch(
-        _ic_params(n, cur_int, intr, nu, 3.0, use_geometric),
+        _ic_params(n, cur_int, intr, nu, 3.0, use_geometric), ws.max_blocks,
         T.data_ptr(), sigma2_int.data_ptr(), sigma2_xi.data_ptr(), kf_int.data_ptr(),
         Px.data_ptr(), Py.data_ptr(), Pz.data_ptr(), kf_mask.data_ptr(), cur_int.data_ptr(),
-        cur_xi.data_ptr(), cur_mask.data_ptr(), partials.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        cur_xi.data_ptr(), cur_mask.data_ptr(), ws.sigma_rows.data_ptr(), ws.counter.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "ic_sigma_launch")
     ic_sigma_stats.launches += 1
@@ -265,42 +273,42 @@ def _ic_sigma_cuda(T, kf_int, kf_points, kf_mask, cur_int, cur_xi, cur_mask, int
 
 
 def _ic_normal_cuda(T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask, intr, nu,
-                    sigma2_int, sigma2_xi, use_geometric, gate_sigmas, lagged,
-                    damping) -> IrlsStep:
+                    sigma2_int, sigma2_xi, use_geometric, gate_sigmas, lagged, damping,
+                    sigma_steps: int = 0) -> IrlsStep:
+    """One launch: ``sigma_steps`` scale phases (exact mode, a cooperative
+    launch) or none, then the normal pass, the solve and the pose update."""
     _ic_check(T, kf_int, kf_points, kf_mask, cur_int, cur_xi, cur_mask, sigma2_int, sigma2_xi)
     dev = T.device
     _build.require(jac12, "jac12", dev, (12,) + tuple(kf_int.shape))
     n = kf_int.numel()
-    ws = _workspace(dev)
+    ws = workspace(dev)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
     Px, Py, Pz = kf_points
     status = _build.library().ic_irls_launch(
         _ic_params(n, cur_int, intr, nu, gate_sigmas, use_geometric, damping),
-        int(bool(lagged)), ws.max_blocks,
+        int(bool(lagged)), sigma_steps, ws.max_blocks,
         T.data_ptr(), sigma2_int.data_ptr(), sigma2_xi.data_ptr(), kf_int.data_ptr(),
         Px.data_ptr(), Py.data_ptr(), Pz.data_ptr(), kf_mask.data_ptr(), jac12.data_ptr(),
         cur_int.data_ptr(), cur_xi.data_ptr(), cur_mask.data_ptr(), ws.partials.data_ptr(),
-        ws.counter.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        ws.sigma_rows.data_ptr(), ws.counter.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "ic_irls_launch")
     ic_normal_eq.launches += 1
+    ic_normal_eq.sigma_phases += sigma_steps
     return _irls_step(out)
 
 
 def _ic_chain_cuda(T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask, intr, nu,
                    sigma2_int, sigma2_xi, sigma_iters, use_geometric, gate_sigmas, sigma_mode,
                    damping) -> IrlsStep:
-    """Exact mode: ``max(sigma_iters, 1)`` sigma launches, each reading the
-    scales the previous one wrote; then the fused normal launch."""
+    """One launch in either mode; exact mode runs ``max(sigma_iters, 1)``
+    scale phases inside it, each weighting with the scales the previous one
+    produced, and the normal pass weights with the last."""
     exact = sigma_mode == "exact"
-    if exact:
-        for _ in range(max(sigma_iters, 1)):
-            st = _ic_sigma_cuda(T, kf_int, kf_points, kf_mask, cur_int, cur_xi, cur_mask, intr,
-                                nu, sigma2_int, sigma2_xi, use_geometric)
-            sigma2_int, sigma2_xi = st.sigma2_int, st.sigma2_xi
     return _ic_normal_cuda(T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask,
                            intr, nu, sigma2_int, sigma2_xi, use_geometric, gate_sigmas,
-                           not exact, damping)
+                           not exact, damping, max(sigma_iters, 1) if exact else 0)
 
 
 def ic_sigma_stats(
@@ -318,9 +326,9 @@ def ic_sigma_stats(
     use_geometric: bool = True,
 ) -> SigmaStats:
     """One Student-t scale step (see ``sigma_stats_plain``). The device of
-    ``T`` decides: CPU runs the plain version, CUDA the kernel. On CUDA the
-    template planes (Ht, Wt) and current planes (H, W) must be contiguous
-    float32 on the same card, the scales 0-d tensors."""
+    ``T`` decides: CPU runs the plain version, CUDA one launch of the
+    kernel. On CUDA the template planes (Ht, Wt) and current planes (H, W)
+    must be contiguous float32 on the same card, the scales 0-d tensors."""
     args = (T, kf_int, kf_points, kf_mask, cur_int, cur_xi, cur_mask, intr, nu,
             sigma2_int, sigma2_xi, use_geometric)
     if _device_kind(T, "IC sigma") == "cpu":
@@ -376,7 +384,7 @@ def residuals_and_normal_eq(
 ) -> IrlsResult:
     """One IC IRLS evaluation (see ops/gauss_newton.py for the contract).
 
-    CPU runs the plain version. CUDA runs the launches of ``ic_irls_step``
+    CPU runs the plain version. CUDA runs the launch of ``ic_irls_step``
     and returns the evaluation; nothing reads back to the host."""
     args = (T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask, intr, nu,
             sigma2_int, sigma2_xi, sigma_iters, use_geometric, gate_sigmas, sigma_mode)
@@ -407,8 +415,9 @@ def ic_irls_step(
 ) -> IrlsStep:
     """One IC IRLS iteration: the evaluation of ``residuals_and_normal_eq``
     at ``T``, then ``ic_update`` with ``damping``. CPU runs the plain
-    versions; CUDA ``max(sigma_iters, 1)`` sigma launches in exact mode and
-    then one fused launch, reading nothing back to the host."""
+    versions; CUDA one launch in either sigma mode (exact mode runs its
+    ``max(sigma_iters, 1)`` scale steps inside it), reading nothing back to
+    the host."""
     args = (T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask, intr, nu,
             sigma2_int, sigma2_xi, sigma_iters, use_geometric, gate_sigmas, sigma_mode)
     if _device_kind(T, "IC") == "cpu":
@@ -418,3 +427,4 @@ def ic_irls_step(
 
 ic_sigma_stats.launches = 0
 ic_normal_eq.launches = 0
+ic_normal_eq.sigma_phases = 0

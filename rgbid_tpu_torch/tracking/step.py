@@ -20,7 +20,7 @@ import torch
 
 from ..core import se3
 from ..core.camera import Intrinsics, level_intrinsics
-from ..mapping.fusion import fuse_and_grow, hole_guess
+from ..mapping.fusion import fuse_frame
 from ..mapping.keyframe import DeviceKeyframe, create_device_keyframe, rebuild_after_fusion
 from ..ops import image
 from .frames import preprocess_planes
@@ -258,19 +258,13 @@ class ProcessFrame:
         return res, kf2, motion2
 
     def _fuse(self, kf: DeviceKeyframe, cur, T, cov):
+        """One fusion launch on the card (the pose-noise floor, hole guess,
+        Kalman update, hit counts and mask), then the template rebuild."""
         cfg = self.cfg
         fcfg, tcfg = cfg.fusion, cfg.tracking
-        # Inflate the tracker covariance with a fixed pose-noise floor.
-        floor = torch.full((6,), fcfg.pose_trans_sigma**2, dtype=torch.float32, device=self.device)
-        floor[3:] = fcfg.pose_rot_sigma**2
-        floor = torch.diag(floor)
-        if fcfg.grow_validity:
-            guess, gmask = hole_guess(kf.levels)
-        else:
-            guess = gmask = None
-        xi2, var2, mask2, hits2, n_fused = fuse_and_grow(
-            kf.levels[0].xi, kf.var, kf.mask_full, kf.hits, cur[0].xi, cur[0].mask,
-            T, cov + floor, self.intrs[0], fcfg, guess=guess, gmask=gmask,
+        xi2, var2, mask2, hits2, n_fused = fuse_frame(
+            kf.levels, kf.var, kf.mask_full, kf.hits, cur[0].xi, cur[0].mask, T, cov,
+            self.intrs[0], fcfg,
         )
         kf2 = rebuild_after_fusion(
             kf, xi2, var2, mask2, hits2, self.intr, tcfg.jac_dtype, tcfg.jacobian,

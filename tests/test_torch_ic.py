@@ -198,6 +198,7 @@ CASES = [
     ("L0 stride2 lagged", "small", SMALL, 0, 2, True, "lagged", 1),
     ("L0 stride2 exact x1", "small", SMALL, 0, 2, True, "exact", 1),
     ("L1 exact x2", "small", SMALL, 1, 1, True, "exact", 2),
+    ("L1 exact x3", "small", SMALL, 1, 1, True, "exact", 3),
     ("L1 geo-off lagged", "small", SMALL, 1, 1, False, "lagged", 1),
     ("L2 geo-off exact x2", "small", SMALL, 2, 1, False, "exact", 2),
     ("odd L0 stride2 exact x1", "odd", ODD, 0, 2, True, "exact", 1),
