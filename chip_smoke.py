@@ -14,23 +14,30 @@ otherwise. Phases, each printing its own lines:
    in IC exact mode the Student-t scale phases too) are held to the plain
    evaluation followed by ``ic_update``, in every layout, in a few-valid
    case (the update suppressed) and in a rerun (bit-identical); the scale
-   step alone and the one-launch fusion step (480x640 and 641x481, growth
-   on and off) are held to their plain versions and rerun;
-4. main paths: SlamSystem over a synthetic VGA sequence with known ground
-   truth, three times: the ESM slice configuration, then the
-   inverse-compositional (IC) configuration with lagged and then exact
-   Student-t scales. Each run checks launch counts (one per IRLS
-   iteration, one fusion launch per fused frame, the scale phases inside
-   the IC exact launches), keyframe switches, lost frames, finite poses,
-   its ATE bound, host reads against the syncs PyTorch reports, and
-   run-to-run bit-identity of poses, and prints ms/frame;
+   step alone, the one-launch fusion step (480x640 and 641x481, growth
+   on and off) and the consensus vote's stratified reduction (the VGA L2
+   and L1 layouts and the odd camera's, with analyze/decide on both sums)
+   are held to their plain versions and rerun;
+4. main paths: SlamSystem over synthetic VGA sequences with known ground
+   truth, five times: the ESM configuration with the consensus off, the
+   default configuration (``SlamConfig()``, back end off: ESM with the
+   motion consensus) on the rigid sequence and on a mover sequence (a
+   near panel crossing at walking speed), then the inverse-compositional
+   (IC) configuration with lagged and then exact Student-t scales. Each
+   run checks launch counts (one per IRLS iteration, plus the consensus's
+   reruns and rescues as the tracker counted them; two stratified launches
+   per tracked frame under the consensus; one fusion launch per fused
+   frame; the scale phases inside the IC exact launches), keyframe
+   switches, lost frames, finite poses, its ATE bound, that the consensus
+   fired on the mover, host reads against the syncs PyTorch reports, and
+   run-to-run bit-identity, and prints ms/frame;
 5. times: each kernel and its plain version, with CUDA events and with
    torch.profiler, beside the least time the card could take (bytes over
    3.35 TB/s, or operations over 67 TFLOP/s f32); the ESM kernel at every
-   pyramid level's layout, the IC step lagged and exact. Then
-   torch.profiler over tracked frames of one ESM run: device ops per frame
-   (fused and not) and the largest of them. Profiling runs last, because
-   it slows later launches.
+   pyramid level's layout, the stratified reduction at L2 and L1, the IC
+   step lagged and exact. Then torch.profiler over tracked frames of one
+   default-configuration run: device ops per frame (fused and not) and the
+   largest of them. Profiling runs last, because it slows later launches.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Imports no JAX and no OpenCV: the scene is
@@ -57,16 +64,24 @@ from rgbid_tpu_torch.eval import absolute_trajectory_error
 from rgbid_tpu_torch.mapping import fusion
 from rgbid_tpu_torch.ops import _build, gauss_newton, kernels
 from rgbid_tpu_torch.ops.gauss_newton import ic_update
+from rgbid_tpu_torch.tracking import consensus
 from rgbid_tpu_torch.tracking.step import ProcessFrame, frame_pyramid, pack_frame
 from rgbid_tpu_torch.tracking.tracker import template_level
 
 N_FRAMES = 36
-# ATE bound of every main-path run: max(2 x the CPU run's ATE, 5 mm). The
-# port tracks this same sequence on the CPU in
-# tests/test_torch_slice.py::test_chip_smoke_scene_on_cpu (ESM, 0.14 mm)
-# and tests/test_torch_ic.py::test_chip_smoke_scene_on_cpu_ic (IC, lagged
-# and exact), and asserts each ATE stays under half of this bound.
+# ATE bound of every main-path run on the rigid sequence: max(2 x the CPU
+# run's ATE, 5 mm). The port tracks this same sequence on the CPU in
+# tests/test_torch_slice.py::test_chip_smoke_scene_on_cpu (ESM, 0.14 mm),
+# tests/test_torch_ic.py::test_chip_smoke_scene_on_cpu_ic (IC, lagged and
+# exact) and tests/test_torch_consensus.py::test_chip_smoke_default_config_on_cpu
+# (the default configuration), and asserts each ATE stays under half of
+# this bound.
 ATE_BOUND_M = 5e-3
+# The mover sequence's bound, by the same rule: the default configuration
+# tracks it on the CPU to 31.8 mm (consensus off: 45.3 mm), and
+# test_chip_smoke_default_config_on_cpu asserts that stays under half of
+# this bound.
+MOVER_ATE_BOUND_M = 0.065
 
 # ---------------------------------------------------------------------------
 # Synthetic scene: textured planes ray-cast in closed form (numpy + scipy).
@@ -176,10 +191,42 @@ def make_sequence(intr: Intrinsics = TUM_FR1, n: int = N_FRAMES, seed: int = 0):
     return frames, gt
 
 
+def make_mover_sequence(intr: Intrinsics = TUM_FR1, n: int = N_FRAMES, seed: int = 0):
+    """The rigid sequence's scene and camera path with a textured
+    fronto-parallel panel (0.5 x 0.7 m) 1.4 m in front of the start,
+    moving along +x at walking speed, 0.015 m/frame (0.45 m/s at 30 Hz),
+    with the camera: it covers ~15% of the image and pulls the pose
+    toward its own motion."""
+    scene = make_scene(seed)
+    rng = np.random.default_rng(seed + 1)
+    tex = _texture(np.random.default_rng(seed + 7))
+    gt = camera_path(n)
+    frames = []
+    for i, T in enumerate(gt):
+        panel = (np.array([-0.6 + 0.015 * i, -0.45, 1.4]), np.array([0.5, 0.0, 0.0]),
+                 np.array([0.0, 0.7, 0.0]), tex, np.array([1.0, 0.9, 0.8]))
+        frames.append((*render(scene + [panel], intr, T, rng), i / 30.0))
+    return frames, gt
+
+
 def slice_config():
+    """The ESM configuration with the motion consensus off."""
     return port.SlamConfig().override(
         **{"tracking.consensus": False, "backend.enabled": False}
     )
+
+
+def default_config():
+    """``SlamConfig()`` with the back end off: ESM with the motion
+    consensus, the attack probe and rescue refounding."""
+    return port.SlamConfig().override(**{"backend.enabled": False})
+
+
+def consensus_fired(stats) -> bool:
+    """The consensus acted on some frame: a consensus_frac above 5%, or a
+    stratum flagged persistently."""
+    return (max(s.get("consensus_frac", 0.0) for s in stats) > 0.05
+            or any(s.get("cons_flags_persist", 0) > 0 for s in stats))
 
 
 def ic_config(sigma_mode: str):
@@ -304,7 +351,10 @@ F32_FLOPS = 67e12
 # + 3, residuals and weights ~26, Jacobians ~89 (ESM), the 32 sums ~180.
 # Each kernel is bytes-bound by more than 4x, so the counts only need to be
 # close.
-FLOPS_PER_PIXEL = {"esm": 385, "ic_normal": 256, "ic_sigma": 79, "fusion": 220}
+# The stratified reduction: the ESM point (~200) and its 50 masked sums
+# (~275), plus the stratum test of every block (~7 compares per stratum).
+FLOPS_PER_PIXEL = {"esm": 385, "ic_normal": 256, "ic_sigma": 79, "fusion": 220,
+                   "esm_stratified": 520}
 
 
 def _tensors(x):
@@ -508,6 +558,92 @@ def phase_kernels(cfg):
                    FLOPS_PER_PIXEL["fusion"] * kf.levels[0].xi.numel(), "480x640, growth on",
                    reads))
     return ok, records, timing
+
+
+def _stratified_plain(a):
+    """The stratified kernel's plain version on the same arguments: the
+    one-hot strata from the template inverse depth, then ``stratified_sums``."""
+    xi, edges = a[10], a[11]
+    strata = consensus.stratum_onehot(xi, a[3], torch.from_numpy(edges).to(xi.device))
+    return gauss_newton.stratified_sums(*a[:10], strata, *a[12:])
+
+
+def _verdicts(sums, level: int, tc, intr_l):
+    """analyze + decide on one vote's (K, 50) host sums, under a cold and a
+    ripe history: the flags the tracker would act on."""
+    Hk, bk, nk, Gk, ek = gauss_newton.unpack_stratified(sums)
+    tol = tc.consensus_tol * (intr_l.fx * 2.0**level / tc.consensus_ref_fx)
+    v = consensus.analyze(Hk, bk, nk, Gk, ek, tol, tc.consensus_min_frac,
+                          tc.consensus_err_ratio, tc.consensus_err_floor)
+    out = [v.excluded, v.hostage, v.dominant, np.float32(v.majority_ok)]
+    for hist in (np.zeros_like(nk), np.full_like(nk, 5.0)):
+        d = consensus.decide(v, hist, nk, tc.consensus_trigger_frac, tc.consensus_max_frac,
+                             tc.consensus_persist)
+        out += [d.member, np.float32(d.triggered), np.float32(d.rescue)]
+    return np.concatenate([np.atleast_1d(x) for x in out])
+
+
+def phase_stratified():
+    """The consensus vote's stratified kernel against its plain version at
+    the vote layouts of the default configuration (L2 and L1, template
+    stride 2, VGA and the odd 641x481 camera; the mover sequence's frames
+    0 and 3, so that the panel fills a stratum): per stratum, H, G and b
+    within _scaled_err <= 1, n exact, the error within 1e-4 relative, a
+    rerun bit-identical, and analyze + decide giving the same flags on the
+    kernel's sums as on the plain ones."""
+    cfg = default_config()
+    tc = cfg.tracking
+    K = tc.consensus_bins
+    edges = consensus.stratum_edges(1.0 / cfg.max_depth, 1.0 / cfg.min_depth, K)
+    strides = tuple(tc.template_stride) + (1,) * tc.levels
+    s2i = torch.full((), tc.init_sigma_int**2, device="cuda")
+    s2x = torch.full((), tc.init_sigma_xi**2, device="cuda")
+    ok, e_abs, e_scaled = True, 0.0, 0.0
+    timing = []
+    for cam, intr in (("VGA", TUM_FR1), ("odd", ODD_INTR)):
+        frames, gt = make_mover_sequence(intr, n=4)
+        step = ProcessFrame(intr, cfg, "cuda")
+        kf = step.init_keyframe(torch.from_numpy(pack_frame(*frames[0][:2])).cuda())
+        cur = frame_pyramid(torch.from_numpy(pack_frame(*frames[3][:2])).cuda(), cfg)
+        T = torch.from_numpy(np.linalg.inv(gt[3]) @ gt[0]).float().cuda()
+        for lvl in (2, 1):
+            kl, pts = template_level(kf.levels[lvl], step.intrs[lvl], strides[lvl])
+            a = (T, kl.intensity, pts, kl.mask, kl.jac, cur[lvl].stack7, step.intrs[lvl],
+                 tc.student_t_nu, s2i, s2x, kl.xi, edges, tc.use_geometric, tc.gate_sigmas, True)
+            k, k2, p = kernels.esm_stratified(*a), kernels.esm_stratified(*a), _stratified_plain(a)
+            torch.cuda.synchronize()
+            kh, ph = k.cpu().numpy(), p.cpu().numpy()
+            ku, pu = gauss_newton.unpack_stratified(k), gauss_newton.unpack_stratified(p)
+            scaled = 0.0
+            for i in (0, 1, 3):  # H, b, G: per stratum
+                for j in range(K):
+                    ea, es = _scaled_err(ku[i][j], pu[i][j])
+                    e_abs, scaled = max(e_abs, ea), max(scaled, es)
+            e_scaled = max(e_scaled, scaled)
+            n_exact = bool(torch.equal(ku[2], pu[2]))
+            err_rel = float(((ku[4] - pu[4]).abs() / pu[4].abs().clamp(min=1e-30)).max())
+            same = bool(torch.equal(k, k2))
+            flags = np.array_equal(_verdicts(kh, lvl, tc, step.intrs[lvl]),
+                                   _verdicts(ph, lvl, tc, step.intrs[lvl]))
+            good = scaled <= 1.0 and n_exact and err_rel <= 1e-4 and same and flags
+            ok &= good
+            print(f"[kernels] esm_stratified {cam} L{lvl}: template {tuple(kl.mask.shape)} stack "
+                  f"{tuple(cur[lvl].stack7.shape)} n per stratum {ph[:, 27].astype(int).tolist()} "
+                  f"H/b/G {scaled:.2f} of tol, n exact {n_exact}, err rel {err_rel:.1e} (tol "
+                  f"1e-4), rerun bit-identical {same}, analyze/decide flags equal {flags} "
+                  f"{'OK' if good else 'FAIL'}")
+            if cam == "VGA":
+                timing.append(("esm_stratified", f"L{lvl}", lambda a: kernels.esm_stratified(*a),
+                               _stratified_plain, a,
+                               FLOPS_PER_PIXEL["esm_stratified"] * kl.mask.numel(),
+                               f"template {tuple(kl.mask.shape)}, stack "
+                               f"{tuple(cur[lvl].stack7.shape)}, K {K}", a))
+    record = dict(name="esm_stratified", route="cuda",
+                  source="rgbid_tpu_torch/csrc/esm_stratified.cu",
+                  replaces="rgbid_tpu/ops/gauss_newton.py:434 (XLA, no Pallas kernel)",
+                  max_abs_err=e_abs, max_err_of_tol=e_scaled)
+    # Timed coarse to fine like the main path: L2, then L1.
+    return ok, {"esm_stratified": record}, timing
 
 
 def phase_ic_kernels():
@@ -786,6 +922,7 @@ def _run_sequence(slam, frames):
 # the scale steps run inside IC launches.
 COUNTERS = {
     "esm_normal_eq": (kernels.esm_residuals_and_normal_eq, "launches"),
+    "esm_stratified": (kernels.esm_stratified, "launches"),
     "ic_normal_eq": (kernels.ic_normal_eq, "launches"),
     "ic_sigma_stats": (kernels.ic_sigma_stats, "launches"),
     "ic_sigma_phases": (kernels.ic_normal_eq, "sigma_phases"),
@@ -793,22 +930,39 @@ COUNTERS = {
 }
 
 
-def expected_launches(tc, tracked: int) -> dict:
+def expected_launches(tc, tracked: int, rerun_iters: int = 0, rescues: int = 0) -> dict:
     """IRLS counts a run must make: one launch per iteration (40 per tracked
-    frame) in every mode, max(sigma_iters, 1) scale phases inside each IC
-    exact launch, and no standalone scale launch."""
-    iters = tracked * sum(tc.iters[: tc.levels])
+    frame) in every mode, and under the consensus (ESM) the iterations of
+    its masked reruns, 40 iterations plus two level-0 evidence evaluations
+    per rescue, and one stratified launch per vote (two per tracked frame);
+    max(sigma_iters, 1) scale phases inside each IC exact launch, and no
+    standalone scale launch. ``rerun_iters`` and ``rescues`` are the
+    tracker's own host counts."""
+    per_frame = sum(tc.iters[: tc.levels])
+    iters = tracked * per_frame
     if tc.jacobian == "esm":
-        return {"esm_normal_eq": iters, "ic_normal_eq": 0, "ic_sigma_stats": 0,
-                "ic_sigma_phases": 0}
+        votes = 0
+        if tc.consensus:
+            votes = tracked * len(range(1, min(tc.consensus_level, tc.levels - 1) + 1))
+            iters += rerun_iters + rescues * (per_frame + 2)
+        return {"esm_normal_eq": iters, "esm_stratified": votes, "ic_normal_eq": 0,
+                "ic_sigma_stats": 0, "ic_sigma_phases": 0}
     sigma = iters * max(tc.sigma_iters, 1) if tc.sigma_mode == "exact" else 0
-    return {"esm_normal_eq": 0, "ic_normal_eq": iters, "ic_sigma_stats": 0,
-            "ic_sigma_phases": sigma}
+    return {"esm_normal_eq": 0, "esm_stratified": 0, "ic_normal_eq": iters,
+            "ic_sigma_stats": 0, "ic_sigma_phases": sigma}
 
 
-def phase_main(cfg, label: str):
+def _consensus_trace(stats):
+    """Per tracked frame: (consensus_frac, cons_flags, persistent flags,
+    rescue), the run's consensus record."""
+    return [(s.get("consensus_frac"), s.get("cons_flags"), s.get("cons_flags_persist"),
+             s.get("rescue")) for s in stats[1:]]
+
+
+def phase_main(cfg, label: str, mover: bool = False):
     tc = cfg.tracking
-    frames, gt = make_sequence()
+    frames, gt = make_mover_sequence() if mover else make_sequence()
+    bound = MOVER_ATE_BOUND_M if mover else ATE_BOUND_M
     slam = port.SlamSystem(TUM_FR1, cfg, device="cuda")
     # Warm-up on a short prefix (library init, allocator), then a fresh run.
     _run_sequence(slam, frames[:4])
@@ -816,7 +970,7 @@ def phase_main(cfg, label: str):
     torch.cuda.synchronize()
     for wrapper, attr in COUNTERS.values():
         setattr(wrapper, attr, 0)
-    reads0 = slam.host_reads
+    reads0, counts0 = slam.host_reads, slam.tracker_counts
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -826,11 +980,12 @@ def phase_main(cfg, label: str):
             torch.cuda.set_sync_debug_mode("default")
     launches = {name: getattr(wrapper, attr) for name, (wrapper, attr) in COUNTERS.items()}
     reads = slam.host_reads - reads0
+    counts = {k: v - counts0[k] for k, v in slam.tracker_counts.items()}
     # Every synchronizing operation PyTorch reports in the run should be
     # one of the deliberate host reads (none inside the IRLS loop).
     syncs = sum(str(w.message).startswith("called a synchronizing") for w in caught)
     tracked = len(frames) - 1
-    expected = expected_launches(tc, tracked)
+    expected = expected_launches(tc, tracked, counts["rerun_iters"], counts["rescues"])
     switches = sum(bool(s.get("switch")) for s in slam.stats)
     lost = sum(bool(s.get("lost")) for s in slam.stats)
     fused = sum(s.get("n_fused", 0) > 0 for s in slam.stats)
@@ -839,20 +994,31 @@ def phase_main(cfg, label: str):
     traj = slam.trajectory()
     cloud = slam.map_points()
     n_kf = len(slam.manager.keyframes)
+    trace = _consensus_trace(slam.stats)
+    fired = consensus_fired(slam.stats)
 
     # A second run, with the sync-debug mode off (it slows the host), is
-    # the timed one; the same input must give bit-identical poses.
+    # the timed one; the same input must give bit-identical poses and the
+    # same consensus decisions.
     slam.reset()
     poses2, ms = _run_sequence(slam, frames)
-    identical = all(np.array_equal(a, b) for a, b in zip(poses, poses2))
+    identical = (all(np.array_equal(a, b) for a, b in zip(poses, poses2))
+                 and _consensus_trace(slam.stats) == trace)
 
     steady = ms[5:]
-    counts = ", ".join(f"{k} {launches[k]} (expected {v})" for k, v in expected.items())
-    print(f"[main {label}] SlamSystem VGA {TUM_FR1.width}x{TUM_FR1.height}, {len(frames)} "
-          f"frames ({tracked} tracked): counts {counts}, fusion launches {launches['fusion']} "
-          f"(expected 1 per fused frame: {fused}); switches {switches}, lost {lost}, "
-          f"keyframes {n_kf}")
-    print(f"[main {label}] ATE {ate * 1e3:.3f} mm (bound {ATE_BOUND_M * 1e3:.1f} mm), poses "
+    cnt = ", ".join(f"{k} {launches[k]} (expected {v})" for k, v in expected.items())
+    print(f"[main {label}] SlamSystem VGA {TUM_FR1.width}x{TUM_FR1.height}, "
+          f"{'mover' if mover else 'rigid'} sequence, {len(frames)} frames ({tracked} tracked): "
+          f"counts {cnt}, fusion launches {launches['fusion']} (expected 1 per fused frame: "
+          f"{fused}); consensus reruns {counts['rerun_iters']} iterations, rescues "
+          f"{counts['rescues']}; switches {switches}, lost {lost}, keyframes {n_kf}")
+    if tc.consensus and tc.jacobian == "esm":
+        print(f"[main {label}] consensus: max consensus_frac "
+              f"{max(t[0] for t in trace):.3f}, frames with flags "
+              f"{sum(t[1] > 0 for t in trace)}, with persistent flags "
+              f"{sum(t[2] > 0 for t in trace)}, refounding rescues {sum(bool(t[3]) for t in trace)}"
+              f"; fired {fired}")
+    print(f"[main {label}] ATE {ate * 1e3:.3f} mm (bound {bound * 1e3:.1f} mm), poses "
           f"finite {finite}, trajectory {len(traj)} rows, map {len(cloud)} points, cloud "
           f"finite {bool(np.isfinite(cloud).all())}, rerun bit-identical {identical}")
     # The highest percentile with at least ten frames above it (the median
@@ -870,7 +1036,8 @@ def phase_main(cfg, label: str):
         and switches >= 1
         and lost == 0
         and finite
-        and ate <= ATE_BOUND_M
+        and ate <= bound
+        and (fired or not mover)
         and len(traj) == len(frames)
         and len(cloud) > 0
         and bool(np.isfinite(cloud).all())
@@ -888,34 +1055,41 @@ def main() -> int:
         return 2
     name, smi = phase_device()
     phase_build()
-    cfg = slice_config()
-    k_ok, records, timing = phase_kernels(cfg)
+    k_ok, records, timing = phase_kernels(slice_config())
+    s_ok, s_records, s_timing = phase_stratified()
     ic_ok, ic_records, ic_timing = phase_ic_kernels()
+    records.update(s_records)
     records.update(ic_records)
-    timing += ic_timing
-    runs = [("esm", cfg), ("ic lagged", ic_config("lagged")), ("ic exact", ic_config("exact"))]
+    timing += s_timing + ic_timing
+    k_ok = k_ok and s_ok and ic_ok
+    runs = [("esm consensus off", slice_config(), False), ("default", default_config(), False),
+            ("default mover", default_config(), True), ("ic lagged", ic_config("lagged"), False),
+            ("ic exact", ic_config("exact"), False)]
     m_ok, total, median = True, dict.fromkeys(COUNTERS, 0), {}
-    for label, run_cfg in runs:
-        good, launches, median[label] = phase_main(run_cfg, label)
+    for label, run_cfg, mover in runs:
+        good, launches, median[label] = phase_main(run_cfg, label, mover)
         m_ok &= good
         for k, v in launches.items():
             total[k] += v
-    print(f"[main] ms/frame median, IC exact - IC lagged in this call: "
-          f"{median['ic exact'] - median['ic lagged']:+.2f}")
+    print(f"[main] ms/frame median in this call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in median.items()) + f"; IC exact - IC lagged "
+          f"{median['ic exact'] - median['ic lagged']:+.2f}, default - consensus off "
+          f"{median['default'] - median['esm consensus off']:+.2f}")
     phase_times(records, timing)
-    phase_profile(cfg)
-    # Counts summed over the three main-path runs. The scale step runs on
+    phase_profile(default_config())
+    # Counts summed over the five main-path runs. The scale step runs on
     # the main path as phases of the IC exact launches: its ``launches`` is
     # that count, and its standalone launches (0 on the main path) stand
     # beside it.
-    for key, counter in (("esm", "esm_normal_eq"), ("fusion", "fusion"),
-                         ("ic_normal", "ic_normal_eq"), ("ic_sigma", "ic_sigma_phases")):
+    for key, counter in (("esm", "esm_normal_eq"), ("esm_stratified", "esm_stratified"),
+                         ("fusion", "fusion"), ("ic_normal", "ic_normal_eq"),
+                         ("ic_sigma", "ic_sigma_phases")):
         records[key]["launches"] = total[counter]
     records["ic_sigma"]["standalone_launches"] = total["ic_sigma_stats"]
-    kern = [records[k] for k in ("esm", "fusion", "ic_normal", "ic_sigma")]
+    kern = [records[k] for k in ("esm", "esm_stratified", "fusion", "ic_normal", "ic_sigma")]
     print(json.dumps({"kernels": kern}))
-    if not (k_ok and ic_ok and m_ok):
-        print(f"chip_smoke: FAILED (kernels {'ok' if k_ok and ic_ok else 'failed'}, main "
+    if not (k_ok and m_ok):
+        print(f"chip_smoke: FAILED (kernels {'ok' if k_ok else 'failed'}, main "
               f"paths {'ok' if m_ok else 'failed'})", file=sys.stderr)
         return 1
     print(smi)

@@ -34,6 +34,7 @@ class HostMotion(NamedTuple):
     T_ck: np.ndarray
     delta: np.ndarray
     lost_count: np.ndarray
+    cons_excluded: np.ndarray
 
 
 def _t(x, device) -> torch.Tensor:
@@ -71,15 +72,18 @@ def keyframe_to_numpy(kf: DeviceKeyframe) -> HostKeyframe:
 
 
 def motion_from_reference(m, device) -> MotionState:
-    """The JAX package's MotionState (numpy leaves) -> the port's. Its
-    consensus streaks (cons_excluded) are dropped: the slice has no
-    motion consensus."""
+    """The JAX package's MotionState (numpy leaves) -> the port's. The
+    consensus streaks (cons_excluded) stay a host float32 array, where the
+    port keeps them; a state without them (None) keeps None."""
+    streaks = getattr(m, "cons_excluded", None)
     return MotionState(
         T_ck=_t(m.T_ck, device),
         delta=_t(m.delta, device),
         lost_count=_t(m.lost_count, device).reshape(()),
+        cons_excluded=None if streaks is None else np.array(streaks, dtype=np.float32),
     )
 
 
 def motion_to_numpy(m: MotionState) -> HostMotion:
-    return HostMotion(_n(m.T_ck), _n(m.delta), _n(m.lost_count))
+    streaks = None if m.cons_excluded is None else np.array(m.cons_excluded, dtype=np.float32)
+    return HostMotion(_n(m.T_ck), _n(m.delta), _n(m.lost_count), streaks)

@@ -38,34 +38,17 @@
 // (ops/gauss_newton.py) operation by operation and the build disables FMA
 // contraction (-fmad=false), so the counts (valid pixels, inliers) equal
 // the plain version's exactly and the sums differ only by summation order.
-// The warp, gather, reductions and the end of the iteration are shared
-// with the IC kernel (irls_common.cuh).
+// The per-pixel math is shared with the stratified vote reduction
+// (esm_pixel.cuh); the warp, gather, reductions and the end of the
+// iteration with the IC kernel (irls_common.cuh).
 
 #include <cuda_runtime.h>
 
+#include "esm_pixel.cuh"
 #include "irls_common.cuh"
-
-// Must match EsmParams in ops/_build.py field by field.
-struct EsmParams {
-  int n;               // template pixels (row-major template planes)
-  int h, w;            // current-stack height and width
-  int use_geometric;   // inverse-depth channel enters H, b and the error
-  int occlusion_gate;  // gate the weights on the inverse-depth residual
-  float fx, fy, cx, cy;
-  float nu;            // Student-t degrees of freedom
-  float nu1;           // nu + 1
-  float gate2;         // gate_sigmas^2 (inlier test)
-  float occ_a;         // (2 gate_sigmas)^2 (occlusion-gate slope)
-  float occ_b;         // 0.05^2 (occlusion-gate floor)
-  float cap2;          // squared occlusion-gate cap; 0 = uncapped
-  float umax, vmax;    // w - 1.001, h - 1.001
-  float damping;       // Levenberg damping of the 6x6 solve
-};
 
 namespace {
 
-using irls::clamp_max;
-using irls::clamp_min;
 using irls::kNormalSums;
 using irls::kThreads;
 
@@ -77,106 +60,31 @@ __device__ __forceinline__ void esm_pixel(
     const float* __restrict__ py, const float* __restrict__ pz,
     const float* __restrict__ kf_mask, const float* __restrict__ kf_grads,
     const float* __restrict__ cur, float (&acc)[kNormalSums]) {
-  const float Px = px[i], Py = py[i], Pz = pz[i];
-  const irls::Projection pr = irls::project(T, Px, Py, Pz, p.fx, p.fy, p.cx, p.cy);
-  const float rho = pr.rho;
-  const irls::Corners cn = irls::corners(pr.up, pr.vp, p.h, p.w, p.umax, p.vmax);
-  const int hw = p.h * p.w;
-  float smp[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) smp[c] = irls::blend(cur + c * hw, cn);
-  const float mask_ok = irls::corner_product(cur + 2 * hw, cn);
-  const float valid = kf_mask[i] * pr.front * cn.inb * mask_ok;
-  const float r_i = (smp[0] - kf_int[i]) * valid;
-  const float r_x = (smp[1] - rho) * valid;
-
-  // Student-t weights; the occlusion gate touches the weights only.
-  const float w0i = irls::student_w0(r_i, s2i, p.nu, p.nu1);
-  const float w0x = irls::student_w0(r_x, s2x, p.nu, p.nu1);
-  float w_i, w_x;
-  if (p.occlusion_gate && p.use_geometric) {
-    float thresh = p.occ_a * s2x + p.occ_b;
-    if (p.cap2 > 0.f) thresh = clamp_max(thresh, p.cap2);
-    const float w_gate = (r_x * r_x <= thresh) ? 1.f : 0.f;
-    w_i = w0i * valid * w_gate / s2i;
-    w_x = w0x * valid * w_gate / s2x;
-  } else {
-    w_i = w0i * valid / s2i;
-    w_x = w0x * valid / s2x;
-  }
-
-  // Warp Jacobian at the template point; exact prediction Jacobian.
-  const float iz = 1.0f / clamp_min(Pz, 1e-6f);
-  const float iz2 = iz * iz;
-  const float nfx = -p.fx, nfy = -p.fy;
-  const float ju[6] = {p.fx * iz,
-                       0.f,
-                       nfx * Px * iz2,
-                       nfx * Px * Py * iz2,
-                       p.fx * (Px * Px * iz2 + 1.0f),
-                       nfx * Py * iz};
-  const float jv[6] = {0.f,
-                       p.fy * iz,
-                       nfy * Py * iz2,
-                       nfy * (Py * Py * iz2 + 1.0f),
-                       p.fy * Px * Py * iz2,
-                       p.fy * Px * iz};
-  const float r20 = T[8], r21 = T[9], r22 = T[10];
-  const float nrho2 = -(rho * rho);
-  const float jr[6] = {nrho2 * r20,
-                       nrho2 * r21,
-                       nrho2 * r22,
-                       nrho2 * (Py * r22 - Pz * r21),
-                       nrho2 * (Pz * r20 - Px * r22),
-                       nrho2 * (Px * r21 - Py * r20)};
-  const float* g = kf_grads;
-  float gxi, gyi, gxx, gyx;
-  if (C >= 7) {
-    gxi = (g[i] + smp[3 % C]) * 0.5f;
-    gyi = (g[p.n + i] + smp[4 % C]) * 0.5f;
-    gxx = (g[2 * p.n + i] + smp[5 % C]) * 0.5f;
-    gyx = (g[3 * p.n + i] + smp[6 % C]) * 0.5f;
-  } else if (C >= 5) {
-    gxi = (g[i] + smp[3 % C]) * 0.5f;
-    gyi = (g[p.n + i] + smp[4 % C]) * 0.5f;
-    gxx = g[2 * p.n + i];
-    gyx = g[3 * p.n + i];
-  } else {
-    gxi = g[i];
-    gyi = g[p.n + i];
-    gxx = g[2 * p.n + i];
-    gyx = g[3 * p.n + i];
-  }
-  float Ji[6], Jx[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    Ji[k] = gxi * ju[k] + gyi * jv[k];
-    Jx[k] = gxx * ju[k] + gyx * jv[k] - jr[k];
-  }
-
+  const esm::Point q =
+      esm::point<C>(p, i, T, s2i, s2x, kf_int, px, py, pz, kf_mask, kf_grads, cur);
   int t = 0;
 #pragma unroll
   for (int a = 0; a < 6; ++a) {
 #pragma unroll
     for (int c = a; c < 6; ++c) {
-      float s = w_i * Ji[a] * Ji[c];
-      if (p.use_geometric) s = s + w_x * Jx[a] * Jx[c];
+      float s = q.w_i * q.Ji[a] * q.Ji[c];
+      if (p.use_geometric) s = s + q.w_x * q.Jx[a] * q.Jx[c];
       acc[t++] += s;
     }
   }
 #pragma unroll
   for (int a = 0; a < 6; ++a) {
-    float s = w_i * Ji[a] * r_i;
-    if (p.use_geometric) s = s + w_x * Jx[a] * r_x;
+    float s = q.w_i * q.Ji[a] * q.r_i;
+    if (p.use_geometric) s = s + q.w_x * q.Jx[a] * q.r_x;
     acc[21 + a] += s;
   }
-  float e = w_i * r_i * r_i;
-  if (p.use_geometric) e = e + w_x * r_x * r_x;
+  float e = q.w_i * q.r_i * q.r_i;
+  if (p.use_geometric) e = e + q.w_x * q.r_x * q.r_x;
   acc[27] += e;
-  acc[28] += valid * ((r_i * r_i < p.gate2 * s2i) ? 1.f : 0.f);
-  acc[29] += valid;
-  acc[30] += valid * w0i * r_i * r_i;
-  acc[31] += valid * w0x * r_x * r_x;
+  acc[28] += q.valid * ((q.r_i * q.r_i < p.gate2 * s2i) ? 1.f : 0.f);
+  acc[29] += q.valid;
+  acc[30] += q.valid * q.w0i * q.r_i * q.r_i;
+  acc[31] += q.valid * q.w0x * q.r_x * q.r_x;
 }
 
 template <int C>

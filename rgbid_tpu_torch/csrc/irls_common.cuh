@@ -1,5 +1,5 @@
-// Device code shared by the hand kernels (esm_normal_eq.cu, ic_normal_eq.cu,
-// fusion.cu): the per-pixel warp and 4-corner gather, the fixed-order block
+// Device code shared by the hand kernels (esm_normal_eq.cu, esm_stratified.cu,
+// ic_normal_eq.cu, fusion.cu): the per-pixel warp and 4-corner gather, the fixed-order block
 // reduction, the last-block pattern (an arrival counter, then the
 // cross-block sum in block-index order), a grid-wide barrier for
 // cooperative launches, and the end of an IRLS iteration in the last block
@@ -152,18 +152,19 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ partials,
 }
 
 // Every thread of the block calls it once the block's row of partials is
-// written (by threads < row_threads). The block counts its arrival on
-// ``counter``; true in every thread of the last block to arrive, which then
-// sees every block's row. The writers make their row visible to the whole
-// card before the block counts, so the count is the only atomic and the
-// rows are summed in block-index order whichever block arrives last. The
-// caller's last block sets ``counter`` back to 0 before the launch ends.
+// written (by threads < row_threads); the grid may be 2-D. The block counts
+// its arrival on ``counter``; true in every thread of the last block to
+// arrive, which then sees every block's row. The writers make their row
+// visible to the whole card before the block counts, so the count is the
+// only atomic and the rows are summed in block-index order whichever block
+// arrives last. The caller's last block sets ``counter`` back to 0 before
+// the launch ends.
 __device__ __forceinline__ bool last_to_arrive(unsigned int* __restrict__ counter,
                                                int row_threads) {
   __shared__ bool last;
   if (threadIdx.x < row_threads) __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x * gridDim.y - 1;
   __syncthreads();
   return last;
 }

@@ -26,9 +26,10 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG / "csrc" / f for f in ("esm_normal_eq.cu", "fusion.cu", "ic_normal_eq.cu"))
-HEADERS = tuple(_PKG / "csrc" / f
-                for f in ("fusion_pixel.cuh", "irls_common.cuh", "irls_solve.cuh"))
+SOURCES = tuple(_PKG / "csrc" / f for f in ("esm_normal_eq.cu", "esm_stratified.cu", "fusion.cu",
+                                             "ic_normal_eq.cu"))
+HEADERS = tuple(_PKG / "csrc" / f for f in ("esm_pixel.cuh", "fusion_pixel.cuh",
+                                            "irls_common.cuh", "irls_solve.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "rgbid_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -37,7 +38,8 @@ NVCC_FLAGS = (
 
 
 class EsmParams(ctypes.Structure):
-    """By-value parameters of ``esm_irls_launch`` (csrc/esm_normal_eq.cu)."""
+    """By-value parameters of ``esm_irls_launch`` and ``esm_stratified_launch``
+    (csrc/esm_pixel.cuh)."""
 
     _fields_ = [
         ("n", ctypes.c_int),
@@ -58,6 +60,19 @@ class EsmParams(ctypes.Structure):
         ("umax", ctypes.c_float),
         ("vmax", ctypes.c_float),
         ("damping", ctypes.c_float),
+    ]
+
+
+MAX_STRATA = 16  # kMaxStrata in csrc/esm_stratified.cu
+
+
+class StrataParams(ctypes.Structure):
+    """By-value stratum edges of ``esm_stratified_launch``
+    (csrc/esm_stratified.cu)."""
+
+    _fields_ = [
+        ("k", ctypes.c_int),
+        ("edges", ctypes.c_float * (MAX_STRATA + 1)),
     ]
 
 
@@ -130,6 +145,8 @@ class Library:
         I = ctypes.c_int
         lib.esm_irls_launch.argtypes = [EsmParams, I, I] + [P] * 14
         lib.esm_irls_launch.restype = I
+        lib.esm_stratified_launch.argtypes = [EsmParams, StrataParams, I, I, I] + [P] * 15
+        lib.esm_stratified_launch.restype = I
         lib.fusion_launch.argtypes = [FusionParams, I] + [P] * 16
         lib.fusion_launch.restype = I
         lib.ic_sigma_launch.argtypes = [IcParams, I] + [P] * 15
@@ -137,6 +154,7 @@ class Library:
         lib.ic_irls_launch.argtypes = [IcParams, I, I, I] + [P] * 17
         lib.ic_irls_launch.restype = I
         self.esm_irls_launch = lib.esm_irls_launch
+        self.esm_stratified_launch = lib.esm_stratified_launch
         self.fusion_launch = lib.fusion_launch
         self.ic_sigma_launch = lib.ic_sigma_launch
         self.ic_irls_launch = lib.ic_irls_launch

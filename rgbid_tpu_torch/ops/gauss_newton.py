@@ -1,8 +1,9 @@
 """Gauss-Newton building blocks (K5-K7), plain PyTorch: ESM and IC.
 
-Counterpart of ``rgbid_tpu/ops/gauss_newton.py:43-212, 215-431, 534-546``.
+Counterpart of ``rgbid_tpu/ops/gauss_newton.py:43-546``.
 ``esm_residuals_and_normal_eq`` here is the plain version of the ESM
-kernel (``ops/kernels.py``, ``csrc/esm_normal_eq.cu``); ``sigma_stats_plain``,
+kernel (``ops/kernels.py``, ``csrc/esm_normal_eq.cu``), ``stratified_sums``
+that of the stratified kernel (``csrc/esm_stratified.cu``); ``sigma_stats_plain``,
 ``normal_eq_plain`` and ``residuals_and_normal_eq`` are the plain versions
 of the two IC kernels (``csrc/ic_normal_eq.cu``). They are the CPU path and
 the reference the kernels are held to on the card. Their per-pixel float
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core import se3
@@ -101,7 +103,9 @@ def _esm_pointwise(
     (averaging on both channels), 5 = [I, xi, mask, gxI, gyI] (intensity
     only), 3 = [I, xi, mask] (template gradients alone).
 
-    Returns (Ji (6, ...), Jx (6, ...) | None, w_i, w_x, r_i, r_x, valid).
+    Returns (Ji (6, ...), Jx (6, ...) | None, ju, jv, w_i, w_x, r_i, r_x,
+    valid): ju and jv are the warp Jacobian's six planes each (the geometry
+    Gram of ``stratified_normal_eq`` reads them).
     """
     n_ch = cur_stack.shape[0]
     Px, Py, Pz = kf_points
@@ -170,7 +174,7 @@ def _esm_pointwise(
     Jx = None
     if use_geometric:
         Jx = torch.stack([gxx * ju[k] + gyx * jv[k] - jrho[k] for k in range(6)])
-    return Ji, Jx, w_i, w_x, r_i, r_x, valid
+    return Ji, Jx, ju, jv, w_i, w_x, r_i, r_x, valid
 
 
 def esm_residuals_and_normal_eq(
@@ -193,7 +197,7 @@ def esm_residuals_and_normal_eq(
     with the lagged sigma update for the next iteration. A disabled
     geometric channel stays out of H, b, the error and its sigma (which
     is returned unchanged)."""
-    Ji, Jx, w_i, w_x, r_i, r_x, valid = _esm_pointwise(
+    Ji, Jx, _ju, _jv, w_i, w_x, r_i, r_x, valid = _esm_pointwise(
         T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu,
         sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate,
         gate_cap2=gate_cap * gate_cap,
@@ -222,6 +226,74 @@ def esm_residuals_and_normal_eq(
     else:
         s2x = sigma2_xi
     return IrlsResult(H * inv_n, b * inv_n, s2i, s2x, err * inv_n, n_valid, inl * inv_n)
+
+
+# The 50 per-pixel quantities of the depth-stratified reduction, in column
+# order: 21 H (upper triangle, row by row), 6 b, the valid count, the
+# weighted error, then 21 geometry Gram entries (upper triangle).
+STRATIFIED_SUMS = 50
+_UPPER = [(a, c) for a in range(6) for c in range(a, 6)]
+
+
+def stratified_sums(
+    T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr: Intrinsics, nu, sigma2_int,
+    sigma2_xi, strata, use_geometric: bool = True, gate_sigmas: float = 3.0,
+    occlusion_gate: bool = True,
+) -> torch.Tensor:
+    """The plain version of the stratified kernel: the (K, 50) raw sums
+    (``STRATIFIED_SUMS`` columns) of the ESM per-pixel quantities over each
+    stratum, as the (K, N) one-hot ``strata`` matrix times the (N, 50)
+    per-pixel matrix. No gate cap."""
+    Ji, Jx, ju, jv, w_i, w_x, r_i, r_x, valid = _esm_pointwise(
+        T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu,
+        sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate,
+    )
+    cols = []
+    for a, c in _UPPER:
+        q = w_i * Ji[a] * Ji[c]
+        if use_geometric:
+            q = q + w_x * Jx[a] * Jx[c]
+        cols.append(q)
+    for a in range(6):
+        q = w_i * Ji[a] * r_i
+        if use_geometric:
+            q = q + w_x * Jx[a] * r_x
+        cols.append(q)
+    cols.append(valid)
+    e = w_i * r_i * r_i
+    cols.append(e + w_x * r_x * r_x if use_geometric else e)
+    for a, c in _UPPER:
+        cols.append(valid * (ju[a] * ju[c] + jv[a] * jv[c]))
+    Q = torch.stack([q.reshape(-1) for q in cols], dim=1)  # (N, 50)
+    return strata.reshape(strata.shape[0], -1) @ Q
+
+
+def unpack_stratified(out):
+    """(K, 50) sums -> (Hk (K, 6, 6), bk (K, 6), nk (K,), Gk (K, 6, 6),
+    ek (K,)); numpy arrays in, numpy arrays out, tensors likewise."""
+    stack = np.stack if isinstance(out, np.ndarray) else torch.stack
+    col = {ac: j for j, ac in enumerate(_UPPER)}
+
+    def sym(base):
+        return stack([stack([out[:, base + col[min(a, c), max(a, c)]] for c in range(6)], 1)
+                      for a in range(6)], 1)
+
+    return sym(0), out[:, 21:27], out[:, 27], sym(29), out[:, 28]
+
+
+def stratified_normal_eq(
+    T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr: Intrinsics, nu, sigma2_int,
+    sigma2_xi, strata, use_geometric: bool = True, gate_sigmas: float = 3.0,
+    occlusion_gate: bool = True,
+):
+    """Depth-stratified normal equations (the JAX package's contract):
+    per-stratum RAW sums (K, 6, 6) H, (K, 6) b, (K,) n, (K, 6, 6) geometry
+    Gram G = sum valid (ju ju^T + jv jv^T), (K,) weighted error, from the
+    ESM per-pixel math at ``T`` with the given (fixed) scales."""
+    return unpack_stratified(stratified_sums(
+        T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu, sigma2_int, sigma2_xi,
+        strata, use_geometric, gate_sigmas, occlusion_gate,
+    ))
 
 
 # IC (inverse-compositional) IRLS: the Pallas form of

@@ -17,20 +17,25 @@
   return the evaluation alone.
 - ``ic_sigma_stats``: one scale step alone, one launch (used by the checks;
   the tracker runs its scale steps inside ``ic_irls_step``).
+- ``esm_stratified``: the motion-consensus vote's (K, 50) per-stratum ESM
+  sums as one launch of ``csrc/esm_stratified.cu``; no Pallas kernel is
+  behind it, it replaces the XLA reduction
+  ``rgbid_tpu/ops/gauss_newton.py::stratified_normal_eq``.
 
 On a CPU tensor each runs its plain PyTorch version (ops/gauss_newton.py),
 and a step adds ``ic_update``; on a CUDA tensor it launches its kernel or
 raises. There is no other path: no fallback, no switch.
-``esm_residuals_and_normal_eq.launches``, ``ic_normal_eq.launches`` and
-``ic_sigma_stats.launches`` count kernel launches, whichever wrapper made
-them; ``ic_normal_eq.sigma_phases`` counts the scale steps run inside IC
-launches.
+``esm_residuals_and_normal_eq.launches``, ``ic_normal_eq.launches``,
+``ic_sigma_stats.launches`` and ``esm_stratified.launches`` count kernel
+launches, whichever wrapper made them; ``ic_normal_eq.sigma_phases`` counts
+the scale steps run inside IC launches.
 
 The launches share one per-card workspace (``workspace``): a (max_blocks,
 32) block partials buffer, a (max_blocks + 1, 3) buffer of scale-step rows
-and their published sums, and three counter words (the last-block arrival
-count and the exact-mode grid barrier's arrivals, both 0 between launches,
-and its generation). The fusion kernel (mapping/fusion.py) uses it too.
+and their published sums, the stratified kernel's (16 x 64, 50) block
+partials, and three counter words (the last-block arrival count and the
+exact-mode grid barrier's arrivals, both 0 between launches, and its
+generation). The fusion kernel (mapping/fusion.py) uses it too.
 Launches go on the current stream, one after the other; two launches on
 two streams at once would share the workspace, and the port never makes
 them.
@@ -44,11 +49,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.camera import Intrinsics
 from . import _build
-from .gauss_newton import IrlsResult, SigmaStats, ic_update, normal_eq_plain, sigma_stats_plain
+from .gauss_newton import STRATIFIED_SUMS, IrlsResult, SigmaStats, ic_update, normal_eq_plain
+from .gauss_newton import sigma_stats_plain, stratified_sums
 from .gauss_newton import esm_residuals_and_normal_eq as esm_residuals_and_normal_eq_plain
 from .gauss_newton import residuals_and_normal_eq as residuals_and_normal_eq_plain
 
@@ -56,6 +63,7 @@ _SUMS = 32  # irls::kNormalSums
 _SIGMA_SUMS = 3
 _OUT = 48 + 16 + 6  # irls::kOut: result, T', delta
 _BLOCKS_PER_SM = 3  # irls::kMinBlocksPerSm: the kernels' grid per SM at most
+_STRATA_BLOCKS = 64  # the stratified kernel's blocks per stratum at most
 
 
 class IrlsStep(NamedTuple):
@@ -71,6 +79,7 @@ class Workspace(NamedTuple):
     max_blocks: int
     partials: torch.Tensor  # (max_blocks, 32) float32
     sigma_rows: torch.Tensor  # (max_blocks + 1, 3) float32: block rows, then the step's sums
+    strata_partials: torch.Tensor  # (MAX_STRATA * _STRATA_BLOCKS, 50) float32
     counter: torch.Tensor  # (3,) int32: arrivals, barrier arrivals, barrier generation
 
 
@@ -88,6 +97,8 @@ def workspace(dev: torch.device) -> Workspace:
             max_blocks,
             torch.empty((max_blocks, _SUMS), dtype=torch.float32, device=dev),
             torch.empty((max_blocks + 1, _SIGMA_SUMS), dtype=torch.float32, device=dev),
+            torch.empty((_build.MAX_STRATA * _STRATA_BLOCKS, STRATIFIED_SUMS),
+                        dtype=torch.float32, device=dev),
             torch.zeros((3,), dtype=torch.int32, device=dev),
         )
         _WORKSPACES[key] = ws
@@ -117,13 +128,26 @@ def _device_kind(T: torch.Tensor, what: str) -> str:
 # ESM: csrc/esm_normal_eq.cu
 
 
+def _esm_params(n, cur_stack, intr: Intrinsics, nu, use_geometric, gate_sigmas, occlusion_gate,
+                gate_cap=0.0, damping=0.0):
+    _, h, w = cur_stack.shape
+    return _build.EsmParams(
+        n=n, h=h, w=w, use_geometric=int(bool(use_geometric)),
+        occlusion_gate=int(bool(occlusion_gate)),
+        fx=intr.fx, fy=intr.fy, cx=intr.cx, cy=intr.cy,
+        nu=nu, nu1=nu + 1.0, gate2=gate_sigmas**2,
+        occ_a=(2.0 * gate_sigmas) ** 2, occ_b=0.05**2, cap2=gate_cap * gate_cap,
+        umax=w - 1.001, vmax=h - 1.001, damping=damping,
+    )
+
+
 def _esm_cuda(
     T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr: Intrinsics, nu,
     sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate, gate_cap, damping,
 ) -> IrlsStep:
     dev = T.device
     th, tw = kf_int.shape
-    c, h, w = cur_stack.shape
+    c = cur_stack.shape[0]
     if c not in (3, 5, 7):
         raise ValueError(f"current stack must have 3, 5 or 7 planes, got {c}")
     Px, Py, Pz = kf_points
@@ -140,14 +164,8 @@ def _esm_cuda(
     lib = _build.library()
     ws = workspace(dev)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
-    p = _build.EsmParams(
-        n=th * tw, h=h, w=w, use_geometric=int(bool(use_geometric)),
-        occlusion_gate=int(bool(occlusion_gate)),
-        fx=intr.fx, fy=intr.fy, cx=intr.cx, cy=intr.cy,
-        nu=nu, nu1=nu + 1.0, gate2=gate_sigmas**2,
-        occ_a=(2.0 * gate_sigmas) ** 2, occ_b=0.05**2, cap2=gate_cap * gate_cap,
-        umax=w - 1.001, vmax=h - 1.001, damping=damping,
-    )
+    p = _esm_params(th * tw, cur_stack, intr, nu, use_geometric, gate_sigmas, occlusion_gate,
+                    gate_cap, damping)
     status = lib.esm_irls_launch(
         p, c, ws.max_blocks, T.data_ptr(), sigma2_int.data_ptr(), sigma2_xi.data_ptr(),
         kf_int.data_ptr(), Px.data_ptr(), Py.data_ptr(), Pz.data_ptr(), kf_mask.data_ptr(),
@@ -219,6 +237,86 @@ def esm_residuals_and_normal_eq(
 
 
 esm_residuals_and_normal_eq.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The consensus vote's stratified sums: csrc/esm_stratified.cu
+
+
+def _stratified_cuda(T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr: Intrinsics, nu,
+                     sigma2_int, sigma2_xi, xi, edges, use_geometric, gate_sigmas,
+                     occlusion_gate) -> torch.Tensor:
+    dev = T.device
+    th, tw = kf_int.shape
+    c = cur_stack.shape[0]
+    k = len(edges) - 1
+    if c not in (3, 5, 7):
+        raise ValueError(f"current stack must have 3, 5 or 7 planes, got {c}")
+    if not 1 <= k <= _build.MAX_STRATA:
+        raise ValueError(f"{k} strata: the kernel takes 1 to {_build.MAX_STRATA}")
+    Px, Py, Pz = kf_points
+    require = _build.require
+    require(T, "T", dev, (4, 4))
+    for name, t in (("kf_int", kf_int), ("Px", Px), ("Py", Py), ("Pz", Pz),
+                    ("kf_mask", kf_mask), ("xi", xi)):
+        require(t, name, dev, (th, tw))
+    require(kf_grads, "kf_grads", dev, (4, th, tw))
+    require(cur_stack, "cur_stack", dev)
+    require(sigma2_int, "sigma2_int", dev, ())
+    require(sigma2_xi, "sigma2_xi", dev, ())
+    sp = _build.StrataParams(k=k)
+    sp.edges[: k + 1] = [float(e) for e in edges]
+    ws = workspace(dev)
+    out = torch.empty((k, STRATIFIED_SUMS), dtype=torch.float32, device=dev)
+    status = _build.library().esm_stratified_launch(
+        _esm_params(th * tw, cur_stack, intr, nu, use_geometric, gate_sigmas, occlusion_gate),
+        sp, c, _STRATA_BLOCKS, ws.strata_partials.shape[0], T.data_ptr(),
+        sigma2_int.data_ptr(), sigma2_xi.data_ptr(), kf_int.data_ptr(), Px.data_ptr(),
+        Py.data_ptr(), Pz.data_ptr(), kf_mask.data_ptr(), kf_grads.data_ptr(),
+        cur_stack.data_ptr(), xi.data_ptr(), ws.strata_partials.data_ptr(),
+        ws.counter.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "esm_stratified_launch")
+    esm_stratified.launches += 1
+    return out
+
+
+def esm_stratified(
+    T: torch.Tensor,
+    kf_int: torch.Tensor,
+    kf_points: tuple,
+    kf_mask: torch.Tensor,
+    kf_grads: torch.Tensor,
+    cur_stack: torch.Tensor,
+    intr: Intrinsics,
+    nu: float,
+    sigma2_int: torch.Tensor,
+    sigma2_xi: torch.Tensor,
+    xi: torch.Tensor,
+    edges: np.ndarray,
+    use_geometric: bool = True,
+    gate_sigmas: float = 3.0,
+    occlusion_gate: bool = True,
+) -> torch.Tensor:
+    """The (K, 50) per-stratum ESM sums of one consensus vote (columns as
+    ``gauss_newton.STRATIFIED_SUMS``; ``unpack_stratified`` splits them),
+    with the strata from the template inverse depth ``xi`` against the
+    K+1 float32 host ``edges``. CPU runs the plain version
+    (``stratified_sums`` on the one-hot strata); CUDA one launch, with the
+    layouts of ``esm_residuals_and_normal_eq`` and ``xi`` (Ht, Wt)."""
+    if _device_kind(T, "stratified ESM") == "cpu":
+        from ..tracking.consensus import stratum_onehot
+
+        strata = stratum_onehot(xi, kf_mask, torch.from_numpy(np.asarray(edges, np.float32)))
+        return stratified_sums(T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu,
+                               sigma2_int, sigma2_xi, strata, use_geometric, gate_sigmas,
+                               occlusion_gate)
+    return _stratified_cuda(T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu,
+                            sigma2_int, sigma2_xi, xi, edges, use_geometric, gate_sigmas,
+                            occlusion_gate)
+
+
+esm_stratified.launches = 0
 
 
 # ---------------------------------------------------------------------------

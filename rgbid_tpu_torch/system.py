@@ -1,8 +1,10 @@
 """SlamSystem: the public API (feed RGB-D frames -> poses + keyframe map).
 
 Counterpart of ``rgbid_tpu/system.py:32-586`` with the back end off: the
-per-frame step (track + fuse/switch) on an explicit torch device, the
-keyframe lifecycle on the host.
+per-frame step (track with the motion consensus + fuse/switch) on an
+explicit torch device, the keyframe lifecycle on the host. The episode
+tagging of odometry edges (``rgbid_tpu/system.py:197-206, 372-383``) feeds
+the back end's pose graph and comes with it (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
@@ -89,6 +91,13 @@ class SlamSystem:
         """Device-to-host reads so far (per-frame step + keyframe finalize)."""
         return self._step.host_reads + self.manager.host_reads
 
+    @property
+    def tracker_counts(self) -> dict:
+        """What the tracker ran beyond its plain pyramids so far: the IRLS
+        iterations of the consensus's masked reruns and the rescue
+        pyramids."""
+        return {"rerun_iters": self._step.rerun_iters, "rescues": self._step.rescues}
+
     def _upload(self, packed_u8: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(packed_u8)
         if self.device.type == "cuda":
@@ -102,7 +111,7 @@ class SlamSystem:
         packed = self._upload(pack_frame(rgb_u8, depth_u16, self.config))
         if self._kf_state is None:
             self._kf_state = self._step.init_keyframe(packed)
-            self._motion = MotionState.initial(self.device)
+            self._motion = MotionState.initial(self.device, self.config.tracking.consensus_bins)
             self.manager.new_keyframe(timestamp, np.eye(4), rgb_u8)
             T_wc = np.eye(4)
             self._record(timestamp, T_wc, None)
@@ -140,6 +149,13 @@ class SlamSystem:
                 n_fused=float(res.n_fused),
                 lost=bool(res.lost > 0.5),
                 switch=bool(res.switch > 0.5),
+                consensus_frac=float(res.consensus_frac),
+                guard_fired=bool(res.guard_fired > 0.5),
+                div_trans=float(res.div_trans),
+                div_rot=float(res.div_rot),
+                cons_flags=float(res.cons_flags),
+                cons_flags_persist=float(res.cons_flags_persist),
+                rescue=bool(res.rescue > 0.5),
             )
         self.stats.append(rec)
         self._frame_count += 1

@@ -7,8 +7,10 @@ frames runs without a host read. Here they are Python branches: after
 tracking, the frame reads its packed result (lost and switch flags
 included) back once, then runs exactly one branch. The fusion cadence
 needs no read, because ``DeviceKeyframe.fused_count`` is a host integer.
-A fused frame reads ``n_fused`` back at its end, so a frame costs one host
-read, or two when it fuses; ``ProcessFrame.host_reads`` counts them.
+A fused frame reads ``n_fused`` back at its end. In ESM mode the motion
+consensus adds one read per vote (two a frame) and one on a frame whose
+rescue runs (tracking/tracker.py). ``ProcessFrame.host_reads`` counts them
+all.
 """
 
 from __future__ import annotations
@@ -28,31 +30,35 @@ from .tracker import TrackResult, track
 
 
 class MotionState(NamedTuple):
-    """Inter-frame tracking state: the constant-velocity motion model and
-    the lost-frame coast-and-hold policy.
+    """Inter-frame tracking state: the constant-velocity motion model, the
+    lost-frame coast-and-hold policy and the consensus streaks.
 
     T_ck: (4, 4) pose of the last frame vs the active keyframe.
     delta: (4, 4) last inter-frame camera motion (identity while lost).
     lost_count: () f32 consecutive lost frames so far.
-    (The JAX package's cons_excluded streaks belong to the motion
-    consensus, which this slice does not run.)
+    cons_excluded: (consensus_bins,) f32 per-stratum consecutive-flag
+    counts, the consensus persistence memory (zeroed on a lost frame). It
+    lives on the HOST as a numpy array: the consensus decisions that read
+    and update it run on the host (tracking/tracker.py).
     """
 
     T_ck: torch.Tensor
     delta: torch.Tensor
     lost_count: torch.Tensor
+    cons_excluded: np.ndarray = None
 
     @classmethod
-    def initial(cls, device) -> "MotionState":
+    def initial(cls, device, cons_bins: int = 6) -> "MotionState":
         eye = torch.eye(4, dtype=torch.float32, device=device)
-        return cls(T_ck=eye, delta=eye, lost_count=torch.zeros((), dtype=torch.float32, device=device))
+        return cls(T_ck=eye, delta=eye, lost_count=torch.zeros((), dtype=torch.float32, device=device),
+                   cons_excluded=np.zeros((cons_bins,), np.float32))
 
 
 class StepResult(NamedTuple):
     """Small per-frame result; travels as one packed f32 vector in the JAX
-    package's layout. The motion-consensus fields (consensus_frac,
-    guard_fired, cons_flags, cons_flags_persist, rescue) are 0 in this
-    slice."""
+    package's layout. The consensus fields that come out of host decisions
+    (consensus_frac, cons_flags, cons_flags_persist, rescue) are written
+    into the host vector after the read."""
 
     T: np.ndarray  # (4, 4) current <- (entry) keyframe
     cov: np.ndarray  # (6, 6) pose covariance
@@ -94,8 +100,15 @@ class StepResult(NamedTuple):
         return cls(*out)
 
 
-# Offsets in the packed vector, after T (16 floats) and cov (36).
+# Offsets in the packed vector, after T (16 floats) and cov (36); the
+# fields after the three per-level vectors depend on the level count.
 _SWITCH, _LOST, _N_FUSED = 52, 53, 54
+
+
+def _tail_offsets(levels: int):
+    """(consensus_frac, cons_flags, cons_flags_persist, rescue) offsets."""
+    o = 55 + 3 * levels + 3  # overlap, sigma2_int, sigma2_xi
+    return o, o + 4, o + 5, o + 6
 
 
 def gray_from_rgb(rgb_u8: np.ndarray) -> np.ndarray:
@@ -158,7 +171,12 @@ def _solve_spd(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 class ProcessFrame:
     """The per-frame step bound to (intrinsics, config, device).
 
-    ``host_reads`` counts device-to-host reads made by ``__call__``."""
+    ``host_reads`` counts device-to-host reads made by ``__call__``;
+    ``rerun_iters`` and ``rescues`` count the IRLS iterations of the
+    consensus's masked reruns and the rescue pyramids run (each 40
+    iterations at the default iters plus two level-0 evaluations).
+
+    In IC mode the consensus is off, as in the JAX package."""
 
     def __init__(self, intr: Intrinsics, cfg, device):
         self.intr = intr
@@ -166,6 +184,8 @@ class ProcessFrame:
         self.device = torch.device(device)
         self.intrs = tuple(level_intrinsics(intr, l) for l in range(cfg.tracking.levels))
         self.host_reads = 0
+        self.rerun_iters = 0
+        self.rescues = 0
 
     def init_keyframe(self, packed_u8: torch.Tensor) -> DeviceKeyframe:
         return self._found(frame_pyramid(packed_u8, self.cfg))
@@ -191,7 +211,10 @@ class ProcessFrame:
         cur = frame_pyramid(packed_u8, cfg)
         # Constant-velocity prediction.
         T_init = se3.orthonormalize(se3.inv(motion.delta) @ motion.T_ck)
-        tr: TrackResult = track(kf.levels, cur, T_init, self.intrs, tcfg, tcfg.jac_dtype)
+        tr: TrackResult = track(kf.levels, cur, T_init, self.intrs, tcfg, tcfg.jac_dtype,
+                                cons_prev=motion.cons_excluded, read=self._read)
+        self.rerun_iters += tr.rerun_iters
+        self.rescues += int(tr.rescue_ran)
 
         # Pose covariance: inverse of the final (un-normalized) normal matrix.
         Hd = tr.H * torch.clamp(tr.n_valid[0], min=1.0) + 1e-8 * torch.eye(
@@ -204,6 +227,16 @@ class ProcessFrame:
         D = se3.inv(T_init) @ tr.T
         div_t = torch.linalg.vector_norm(D[:3, 3])
         div_r = se3.rotation_angle(D[:3, :3])
+        # Stress flags (host): strata flagged this frame, and persistently.
+        stress_n = float((tr.cons_excluded > 0.5).sum())
+        stress_p = float((tr.cons_excluded >= float(tcfg.consensus_persist)).sum())
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        guard_fired = zero > 0.0
+        if tcfg.divergence_guard and tcfg.consensus and stress_p > 0.5:
+            # "Confidently wrong": divergence from the prior while stress
+            # flags persist declares the frame lost.
+            guard_fired = ((div_t > tcfg.div_trans_thresh) | (div_r > tcfg.div_rot_thresh)) & finite
+            lost = lost | guard_fired
         t_norm = torch.linalg.vector_norm(tr.T[:3, 3])
         angle = se3.rotation_angle(tr.T[:3, :3])
         sigma_t = torch.sqrt(torch.clamp(torch.trace(cov[:3, :3]), min=0.0))
@@ -212,18 +245,24 @@ class ProcessFrame:
             | (t_norm > kcfg.max_translation)
             | (angle > kcfg.max_rotation)
             | (sigma_t > kcfg.max_pose_sigma)
-        ) & ~lost
+        )
+        if tcfg.rescue_refound and tcfg.consensus and tr.rescue > 0.5:
+            # A rescue that corrected the pose refounds the keyframe.
+            switch = torch.ones_like(switch)
+        switch = switch & ~lost
         first_lost = motion.lost_count < 0.5
         T_eff = torch.where(lost, torch.where(first_lost, T_init, motion.T_ck), tr.T)
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
         fields = [
             T_eff, cov, switch, lost, zero, tr.errors, tr.inlier_frac, tr.n_valid,
-            tr.overlap, tr.sigma2_int, tr.sigma2_xi, zero, zero, div_t, div_r,
+            tr.overlap, tr.sigma2_int, tr.sigma2_xi, zero, guard_fired, div_t, div_r,
             zero, zero, zero,
         ]
         # The frame's one mandatory host read: the branch below needs the
         # lost and switch flags.
         res = self._read(StepResult.pack(fields))
+        o_frac, o_flags, o_persist, o_rescue = _tail_offsets(tcfg.levels)
+        res[o_frac], res[o_flags], res[o_persist] = tr.consensus_frac, stress_n, stress_p
+        res[o_rescue] = tr.rescue
         is_lost = bool(res[_LOST] > 0.5)
         is_switch = bool(res[_SWITCH] > 0.5)
 
@@ -244,17 +283,20 @@ class ProcessFrame:
             res[_N_FUSED] = self._read(n_fused)
 
         # Motion model: coast one prediction step on the first lost frame,
-        # then hold; reset the velocity while lost; re-anchor at identity on
-        # a new keyframe.
+        # then hold; reset the velocity and the consensus streaks while
+        # lost; re-anchor at identity on a new keyframe.
         if is_lost:
             T_ck_new = T_eff
             delta_new = eye4
             lost_count = motion.lost_count + 1.0
+            streaks = np.zeros_like(tr.cons_excluded)
         else:
             T_ck_new = eye4 if is_switch else tr.T
             delta_new = se3.orthonormalize(motion.T_ck @ se3.inv(tr.T))
             lost_count = torch.zeros_like(motion.lost_count)
-        motion2 = MotionState(T_ck=T_ck_new, delta=delta_new, lost_count=lost_count)
+            streaks = tr.cons_excluded
+        motion2 = MotionState(T_ck=T_ck_new, delta=delta_new, lost_count=lost_count,
+                              cons_excluded=streaks)
         return res, kf2, motion2
 
     def _fuse(self, kf: DeviceKeyframe, cur, T, cov):

@@ -507,15 +507,19 @@ def test_odometry_recipe_matches_jax():
 
 def test_ic_config_constructs_and_esm_consensus_raises():
     """The IC configuration constructs with consensus left on (the JAX
-    package runs consensus only in ESM mode); ESM with consensus raises,
-    naming the ROADMAP item, in SlamSystem and in Tracker."""
+    package runs consensus only in ESM mode). ESM with consensus, which
+    raised until the consensus was ported, now constructs in SlamSystem and
+    in Tracker; the default configuration still raises for its back end,
+    naming that ROADMAP item."""
     intr = Intrinsics(*QVGA)
     slam = port.SlamSystem(intr, port.SlamConfig().override(**IC), device="cpu")
     assert slam.config.tracking.consensus and slam.config.tracking.jacobian == "ic"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #8"):
-        port.SlamSystem(intr, port.SlamConfig().override(**{"backend.enabled": False}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #8"):
-        ttracking.Tracker(intr, TrackingConfig(jacobian="esm"))
+    esm = port.SlamSystem(intr, port.SlamConfig().override(**{"backend.enabled": False}),
+                          device="cpu")
+    assert esm.config.tracking.consensus and esm.config.tracking.jacobian == "esm"
+    assert ttracking.Tracker(intr, TrackingConfig(jacobian="esm")).cfg.consensus
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #9"):
+        port.SlamSystem(intr, port.SlamConfig(), device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["lagged", "exact"])

@@ -2,7 +2,8 @@
 package, plus the port's import hygiene and the chip_smoke scene on CPU.
 
 Slice configuration: ``SlamConfig()`` with ``tracking.consensus`` and
-``backend.enabled`` off, the path rgbid_tpu_torch runs.
+``backend.enabled`` off, the ESM path without the motion consensus
+(``tests/test_torch_consensus.py`` holds the default configuration).
 """
 
 import functools
@@ -148,6 +149,7 @@ def test_step_with_injected_state_matches_jax(qvga_frames, both_systems):
     back = convert.motion_to_numpy(tm)
     np.testing.assert_array_equal(back.T_ck, m_np.T_ck)
     np.testing.assert_array_equal(back.delta, m_np.delta)
+    np.testing.assert_array_equal(back.cons_excluded, m_np.cons_excluded)
     tvec, tkf, tm2 = ps._step(torch.from_numpy(packed), convert.keyframe_from_reference(kf_np, "cpu"), tm)
     tres = StepResult.unpack(tvec, 4)
     assert (tres.switch, tres.lost, tres.n_fused) == (jres.switch, jres.lost, jres.n_fused)
@@ -155,6 +157,7 @@ def test_step_with_injected_state_matches_jax(qvga_frames, both_systems):
     np.testing.assert_allclose(tres.n_valid, jres.n_valid, rtol=1e-5)
     np.testing.assert_allclose(tres.overlap, jres.overlap, rtol=1e-5)
     np.testing.assert_allclose(tm2.T_ck.numpy(), np.asarray(jm.T_ck), atol=1e-5)
+    np.testing.assert_array_equal(tm2.cons_excluded, np.asarray(jm.cons_excluded))
     np.testing.assert_allclose(tkf.levels[0].xi.numpy(), np.asarray(jkf.levels[0].xi), atol=1e-5)
     assert tkf.fused_count == int(jkf.fused_count)
 
@@ -243,7 +246,7 @@ def test_chip_smoke_scene_on_cpu():
 @pytest.mark.parametrize(
     "override",
     [
-        {"tracking.consensus": True},
+        pytest.param({"depth_codec": "u16h"}, id="depth_codec=u16h"),
         {"backend.enabled": True},
         {"tracking.plane_dtype": "bf16"},
         {"depth_codec": "u12"},
