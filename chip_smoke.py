@@ -19,7 +19,7 @@ otherwise. Phases, each printing its own lines:
    and L1 layouts and the odd camera's, with analyze/decide on both sums)
    are held to their plain versions and rerun;
 4. main paths: SlamSystem over synthetic VGA sequences with known ground
-   truth, five times: the ESM configuration with the consensus off, the
+   truth, five times, and a sixth over a closed loop (item 6): the ESM configuration with the consensus off, the
    default configuration (``SlamConfig()``, back end off: ESM with the
    motion consensus) on the rigid sequence and on a mover sequence (a
    near panel crossing at walking speed), then the inverse-compositional
@@ -38,6 +38,21 @@ otherwise. Phases, each printing its own lines:
    step lagged and exact. Then torch.profiler over tracked frames of one
    default-configuration run: device ops per frame (fused and not) and the
    largest of them. Profiling runs last, because it slows later launches.
+6. the back end without ORB, on the card (its thread stays out: it needs
+   ORB features, which the port does not extract yet). The ESM step at the
+   six layouts ``RelocScorer`` gives it (VGA and 641x481 with ``reloc_level``
+   2), against its plain version, in phase 3 and timed in phase 5. The
+   scorer on the card against the scorer on the CPU on a revisit, an
+   adjacent and an unrelated pair: the same ``accept``, the pose within a
+   stated tolerance, the margins to every gate, exactly 3 x ``reloc_iters``
+   launches per pair in the scorer's own count, one read per call. The loop
+   run: the default configuration with tight keyframe limits over a closed
+   path, checked like every main-path run (and in every run: an odometry
+   edge per switch, reloc planes on every keyframe, one read per finalize);
+   then (last keyframe, keyframe 0) verified by the scorer, the loop edge
+   built as ``LoopCloser`` builds it, and ``PoseGraph.optimize`` over the
+   run's edges plus that one: final <= initial error, finite poses, and
+   the keyframe ATE no worse than before by more than 1 mm.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Imports no JAX and no OpenCV: the scene is
@@ -60,10 +75,14 @@ from scipy import ndimage
 import rgbid_tpu_torch as port
 from rgbid_tpu_torch.core import se3
 from rgbid_tpu_torch.core.camera import TUM_FR1, Intrinsics
+from rgbid_tpu_torch.backend.loop_closure import loop_edge
+from rgbid_tpu_torch.backend.pose_graph import PoseGraph
+from rgbid_tpu_torch.backend.relocalization import SCORER_DAMPING, RelocScorer, mini_pyramid
 from rgbid_tpu_torch.eval import absolute_trajectory_error
 from rgbid_tpu_torch.mapping import fusion
 from rgbid_tpu_torch.ops import _build, gauss_newton, kernels
 from rgbid_tpu_torch.ops.gauss_newton import ic_update
+from rgbid_tpu_torch.reference_cpu import odometry
 from rgbid_tpu_torch.tracking import consensus
 from rgbid_tpu_torch.tracking.step import ProcessFrame, frame_pyramid, pack_frame
 from rgbid_tpu_torch.tracking.tracker import template_level
@@ -82,6 +101,20 @@ ATE_BOUND_M = 5e-3
 # test_chip_smoke_default_config_on_cpu asserts that stays under half of
 # this bound.
 MOVER_ATE_BOUND_M = 0.065
+# The loop sequence (a closed path that returns to its start) and what the
+# back end's functions must make of it. The default configuration tracks it
+# on the CPU in tests/test_torch_loop.py::test_chip_smoke_loop_on_cpu, which
+# holds the run's ATE to half of LOOP_ATE_BOUND_M and the change of the
+# keyframe ATE under the pose graph to half of LOOP_PG_MARGIN_M.
+LOOP_FRAMES = 48
+LOOP_ATE_BOUND_M = 5e-3
+LOOP_MIN_KEYFRAMES = 6
+LOOP_PG_MARGIN_M = 1e-3
+# Scorer on the card against the scorer on the CPU: the pose of a pair that
+# both accept. One IRLS step agrees with its plain version within 1e-6, and
+# 36 chained steps on a converging pair contract that difference (measured
+# on the card: 1.5e-8, PERF.md section 6).
+SCORER_POSE_TOL = 1e-5
 
 # ---------------------------------------------------------------------------
 # Synthetic scene: textured planes ray-cast in closed form (numpy + scipy).
@@ -207,6 +240,38 @@ def make_mover_sequence(intr: Intrinsics = TUM_FR1, n: int = N_FRAMES, seed: int
                  np.array([0.0, 0.7, 0.0]), tex, np.array([1.0, 0.9, 0.8]))
         frames.append((*render(scene + [panel], intr, T, rng), i / 30.0))
     return frames, gt
+
+
+def loop_path(n: int):
+    """A closed path: out to the side and forward, back to the start pose
+    (the last pose equals the first), ~0.9 m long, so the keyframe limits of
+    ``loop_config`` force a chain of keyframes around it."""
+    poses = []
+    for i in range(n):
+        a = 2.0 * np.pi * i / max(n - 1, 1)
+        T = np.eye(4)
+        T[:3, :3] = _rot(0.03 * np.sin(a), -0.10 * np.sin(a), 0.02 * np.sin(2.0 * a))
+        T[:3, 3] = [0.22 * np.sin(a), 0.06 * (1.0 - np.cos(a)), 0.12 * (1.0 - np.cos(a))]
+        poses.append(T)
+    return poses
+
+
+def make_loop_sequence(intr: Intrinsics = TUM_FR1, n: int = LOOP_FRAMES, seed: int = 0):
+    """The rigid sequence's scene (or, with another seed, the same room
+    with other textures) seen from ``loop_path``."""
+    scene = make_scene(seed)
+    rng = np.random.default_rng(seed + 1)
+    gt = loop_path(n)
+    frames = [(*render(scene, intr, T, rng), i / 30.0) for i, T in enumerate(gt)]
+    return frames, gt
+
+
+def loop_config():
+    """The default configuration (back end off) with keyframe limits tight
+    enough for a chain of keyframes around the loop."""
+    return default_config().override(
+        **{"keyframe.max_translation": 0.08, "keyframe.max_rotation": 0.08}
+    )
 
 
 def slice_config():
@@ -421,6 +486,39 @@ def _rel(a, b) -> float:
     return float((a - b).abs() / b.abs().clamp(min=1e-30))
 
 
+def _esm_chain(a, damping: float):
+    """The plain version of one fused ESM step: the plain evaluation, then
+    ``ic_update``. Returns (result, T', delta)."""
+    p = kernels.esm_residuals_and_normal_eq_plain(*a)
+    return (p,) + ic_update(a[0], p.H, p.b, damping, p.n_valid)
+
+
+def _esm_case(label: str, args, damping: float):
+    """One layout of the fused ESM step against its plain chain: H and b
+    within ``_scaled_err`` <= 1, counts exact (the kernel rounds every
+    per-pixel step like the plain version: same operation order, no FMA
+    contraction), error and scales within 1e-4 relative, T' and delta
+    within 1e-6. Returns (good, max |d|, max share of tolerance, max pose
+    error)."""
+    ks = kernels.esm_irls_step(*args, damping=damping)
+    k = ks.result
+    p, Tp, dp = _esm_chain(args, damping)
+    torch.cuda.synchronize()
+    eH, sH = _scaled_err(k.H, p.H)
+    eb, sb = _scaled_err(k.b, p.b)
+    exact = bool(k.n_valid == p.n_valid) and bool(k.inlier_frac == p.inlier_frac)
+    scal = max(_rel(k.error, p.error), _rel(k.sigma2_int, p.sigma2_int),
+               _rel(k.sigma2_xi, p.sigma2_xi))
+    dT, dd = _step_errs(ks, Tp, dp)
+    good = sH <= 1.0 and sb <= 1.0 and exact and scal <= 1e-4 and dT <= 1e-6 and dd <= 1e-6
+    print(f"[kernels] esm {label}: template {tuple(args[3].shape)} stack "
+          f"{tuple(args[5].shape)} n_valid {int(k.n_valid)} (plain {int(p.n_valid)}) "
+          f"H max|d| {eH:.3e} ({sH:.2f} of tol) b max|d| {eb:.3e} ({sb:.2f} of tol) "
+          f"err/sigma rel {scal:.1e} (tol 1e-4) T' max|d| {dT:.1e} delta max|d| {dd:.1e} "
+          f"(tol 1e-6) {'OK' if good else 'FAIL'}")
+    return good, max(eH, eb), max(sH, sb), max(dT, dd)
+
+
 def phase_kernels(cfg):
     """Each kernel vs its plain version at the main path's shapes."""
     tc = cfg.tracking
@@ -451,41 +549,17 @@ def phase_kernels(cfg):
         return kernels.esm_irls_step(*a, damping=damping)
 
     def chain(a):
-        p = kernels.esm_residuals_and_normal_eq_plain(*a)
-        return (p,) + ic_update(a[0], p.H, p.b, damping, p.n_valid)
+        return _esm_chain(a, damping)
 
     esm_abs, esm_scaled, esm_pose = 0.0, 0.0, 0.0
     for label, (kf, cur, T, intrs), lvl, geo, gate, cap in cases:
         kl, pts = template_level(kf.levels[lvl], intrs[lvl], strides[lvl])
-        stack = cur[lvl].stack7
-        args = (T, kl.intensity, pts, kl.mask, kl.jac, stack, intrs[lvl], tc.student_t_nu,
-                s2i, s2x, geo, tc.gate_sigmas, gate, cap)
-        ks = step(args)
-        k = ks.result
-        p, Tp, dp = chain(args)
-        torch.cuda.synchronize()
-        eH, sH = _scaled_err(k.H, p.H)
-        eb, sb = _scaled_err(k.b, p.b)
-        # Counts are exact: the kernel rounds every per-pixel step like the
-        # plain version (same operation order, no FMA contraction).
-        exact = bool(k.n_valid == p.n_valid) and bool(k.inlier_frac == p.inlier_frac)
-        scal = max(
-            float(((k.error - p.error).abs() / p.error.abs().clamp(min=1e-30))),
-            float(((k.sigma2_int - p.sigma2_int).abs() / p.sigma2_int)),
-            float(((k.sigma2_xi - p.sigma2_xi).abs() / p.sigma2_xi)),
-        )
-        dT, dd = _step_errs(ks, Tp, dp)
-        good = (sH <= 1.0 and sb <= 1.0 and exact and scal <= 1e-4 and dT <= 1e-6
-                and dd <= 1e-6)
+        args = (T, kl.intensity, pts, kl.mask, kl.jac, cur[lvl].stack7, intrs[lvl],
+                tc.student_t_nu, s2i, s2x, geo, tc.gate_sigmas, gate, cap)
+        good, e_abs, e_scaled, e_pose = _esm_case(label, args, damping)
         ok &= good
-        esm_abs = max(esm_abs, eH, eb)
-        esm_scaled = max(esm_scaled, sH, sb)
-        esm_pose = max(esm_pose, dT, dd)
-        print(f"[kernels] esm {label}: template {tuple(kl.mask.shape)} stack "
-              f"{tuple(stack.shape)} n_valid {int(k.n_valid)} (plain {int(p.n_valid)}) "
-              f"H max|d| {eH:.3e} ({sH:.2f} of tol) b max|d| {eb:.3e} ({sb:.2f} of tol) "
-              f"err/sigma rel {scal:.1e} (tol 1e-4) T' max|d| {dT:.1e} delta max|d| {dd:.1e} "
-              f"(tol 1e-6) {'OK' if good else 'FAIL'}")
+        esm_abs, esm_scaled = max(esm_abs, e_abs), max(esm_scaled, e_scaled)
+        esm_pose = max(esm_pose, e_pose)
 
     # The level-0 layout of the main path (20 of the 40 launches per frame).
     kf, cur, T, intrs = vga
@@ -558,6 +632,68 @@ def phase_kernels(cfg):
                    FLOPS_PER_PIXEL["fusion"] * kf.levels[0].xi.numel(), "480x640, growth on",
                    reads))
     return ok, records, timing
+
+
+def _scorer_level_args(intr: Intrinsics, cfg, scorer: RelocScorer):
+    """What the scorer gives the ESM kernel at its three levels, on the
+    card: frames 0 and 3 of the loop sequence, their planes at the reloc
+    level from the per-frame pyramid, then the scorer's own mini-pyramid
+    and ``level_args``. T is the ground-truth relative pose."""
+    scene = make_scene(0)
+    rng = np.random.default_rng(5)
+    gt = loop_path(LOOP_FRAMES)
+    sets = []
+    for T_wc in (gt[0], gt[3]):
+        lvl = frame_pyramid(torch.from_numpy(pack_frame(*render(scene, intr, T_wc, rng))).cuda(),
+                            cfg)[scorer.level]
+        sets.append(mini_pyramid(torch.stack([lvl.intensity, lvl.xi, lvl.mask])))
+    T = torch.from_numpy(np.linalg.inv(gt[3]) @ gt[0]).float().cuda()
+    s2i = torch.full((), 0.01, device="cuda")
+    s2x = torch.full((), 0.0025, device="cuda")
+    tc = cfg.tracking
+    out = []
+    for l in (2, 1, 0):  # coarse to fine, as the scorer runs them
+        intr_l = scorer.intrs[l]
+        a = scorer.level_args(sets[0][l], sets[1][l], intr_l)
+        out.append((T, *a, intr_l, tc.student_t_nu, s2i, s2x, True, 3.0, True, 0.0))
+    return out
+
+
+def phase_scorer_layouts(records):
+    """The fused ESM step at the layouts ``RelocScorer`` gives it (template
+    and stack of one size, 7 planes, stride 1, float32 gradients, the
+    occlusion gate on, no cap, damping 1e-6): VGA with ``reloc_level`` 2
+    (160x120, 80x60, 40x30) and the odd 641x481 camera's three, against the
+    plain evaluation plus ``ic_update``, with a rerun (bit-identical). The
+    VGA layouts are timed under the ESM kernel's record."""
+    cfg = default_config()
+    ok, timing = True, []
+    rec = records["esm"]
+
+    def step(a):
+        return kernels.esm_irls_step(*a, damping=SCORER_DAMPING)
+
+    for cam, intr in (("VGA", TUM_FR1), ("odd", ODD_INTR)):
+        scorer = RelocScorer(intr, cfg, "cuda")
+        for a in _scorer_level_args(intr, cfg, scorer):
+            h, w = a[1].shape
+            good, e_abs, e_scaled, e_pose = _esm_case(f"scorer {cam} {w}x{h} 7-plane gate", a,
+                                                      SCORER_DAMPING)
+            x, y = step(a), step(a)
+            torch.cuda.synchronize()
+            same = all(torch.equal(p, q) for p, q in zip(_flat(x), _flat(y)))
+            print(f"[kernels] esm scorer {cam} {w}x{h} rerun bit-identical {same} "
+                  f"{'OK' if same else 'FAIL'}")
+            ok &= good and same
+            rec["max_abs_err"] = max(rec["max_abs_err"], e_abs)
+            rec["max_err_of_tol"] = max(rec["max_err_of_tol"], e_scaled)
+            rec["max_pose_err"] = max(rec["max_pose_err"], e_pose)
+            if cam == "VGA":
+                timing.append(("esm", f"reloc {w}x{h}", step,
+                               lambda a: _esm_chain(a, SCORER_DAMPING)[1:], a,
+                               FLOPS_PER_PIXEL["esm"] * h * w,
+                               f"template {(h, w)}, stack {tuple(a[5].shape)}", a))
+    return ok, timing
 
 
 def _stratified_plain(a):
@@ -841,10 +977,11 @@ def phase_times(records, timing):
                    device_ms=dev_ms, plain_device_ms=plain_dev_ms, bound_ms=bound_ms,
                    bound_by=bound_by, bytes=nbytes, flops=flops)
         records[key].setdefault("levels", []).append(rec)
-    # The top-level numbers of a record are those of its finest layout
-    # (level 0, the largest).
+    # The top-level numbers of a record are those of its finest per-frame
+    # layout (level 0, the largest); the scorer's layouts stay in "levels".
     for rec in records.values():
-        rec.update({k: v for k, v in rec["levels"][-1].items() if k != "level"})
+        finest = [l for l in rec["levels"] if not l["level"].startswith("reloc")][-1]
+        rec.update({k: v for k, v in finest.items() if k != "level"})
         rec["library_ms"] = None  # no single PyTorch call computes any of these
 
 
@@ -959,10 +1096,16 @@ def _consensus_trace(stats):
              s.get("rescue")) for s in stats[1:]]
 
 
-def phase_main(cfg, label: str, mover: bool = False):
+def phase_main(cfg, label: str, mover: bool = False, loop: bool = False):
+    """One main-path run. Returns (good, launches, median ms/frame, the
+    system after its timed rerun)."""
     tc = cfg.tracking
-    frames, gt = make_mover_sequence() if mover else make_sequence()
-    bound = MOVER_ATE_BOUND_M if mover else ATE_BOUND_M
+    if loop:
+        frames, gt = make_loop_sequence()
+        bound, kind = LOOP_ATE_BOUND_M, "loop"
+    else:
+        frames, gt = make_mover_sequence() if mover else make_sequence()
+        bound, kind = (MOVER_ATE_BOUND_M, "mover") if mover else (ATE_BOUND_M, "rigid")
     slam = port.SlamSystem(TUM_FR1, cfg, device="cuda")
     # Warm-up on a short prefix (library init, allocator), then a fresh run.
     _run_sequence(slam, frames[:4])
@@ -994,6 +1137,19 @@ def phase_main(cfg, label: str, mover: bool = False):
     traj = slam.trajectory()
     cloud = slam.map_points()
     n_kf = len(slam.manager.keyframes)
+    # The front end's bookkeeping for the back end: an odometry edge per
+    # switch between consecutive keyframes, the reloc planes of every
+    # finalized keyframe, one packed read per finalize.
+    edges = slam.manager.edges
+    planes_ok = all(
+        kf.reloc_planes is not None
+        and kf.reloc_planes["intensity0_u8"].shape == (TUM_FR1.height, TUM_FR1.width)
+        and all(np.isfinite(kf.reloc_planes[k]).all() for k in ("intensity", "xi", "mask"))
+        for kf in slam.manager.keyframes)
+    edges_ok = (len(edges) == switches == n_kf - 1
+                and all(e.to_id == e.from_id + 1 and np.isfinite(e.information).all()
+                        for e in edges))
+    finalize_reads = slam.manager.host_reads
     trace = _consensus_trace(slam.stats)
     fired = consensus_fired(slam.stats)
 
@@ -1008,10 +1164,12 @@ def phase_main(cfg, label: str, mover: bool = False):
     steady = ms[5:]
     cnt = ", ".join(f"{k} {launches[k]} (expected {v})" for k, v in expected.items())
     print(f"[main {label}] SlamSystem VGA {TUM_FR1.width}x{TUM_FR1.height}, "
-          f"{'mover' if mover else 'rigid'} sequence, {len(frames)} frames ({tracked} tracked): "
+          f"{kind} sequence, {len(frames)} frames ({tracked} tracked): "
           f"counts {cnt}, fusion launches {launches['fusion']} (expected 1 per fused frame: "
           f"{fused}); consensus reruns {counts['rerun_iters']} iterations, rescues "
-          f"{counts['rescues']}; switches {switches}, lost {lost}, keyframes {n_kf}")
+          f"{counts['rescues']}; switches {switches}, lost {lost}, keyframes {n_kf}, odometry "
+          f"edges {len(edges)} ({sum(e.episode for e in edges)} episode-tagged) ok {edges_ok}, "
+          f"reloc planes on every keyframe {planes_ok}, finalize reads {finalize_reads}")
     if tc.consensus and tc.jacobian == "esm":
         print(f"[main {label}] consensus: max consensus_frac "
               f"{max(t[0] for t in trace):.3f}, frames with flags "
@@ -1043,9 +1201,197 @@ def phase_main(cfg, label: str, mover: bool = False):
         and bool(np.isfinite(cloud).all())
         and identical
         and syncs == reads
+        and edges_ok
+        and planes_ok
+        and finalize_reads == n_kf
+        and (n_kf >= LOOP_MIN_KEYFRAMES or not loop)
     )
     print(f"[main {label}] {'OK' if good else 'FAIL'}")
-    return good, launches, float(np.median(steady))
+    return good, launches, float(np.median(steady)), slam
+
+
+def _host_planes(frame, cfg, level: int) -> dict:
+    """A frame's reloc planes made on the host (numpy), as
+    ``SlamSystem._try_relocalize`` makes a lost frame's."""
+    pyr = odometry.preprocess_frame(frame[0], frame[1], level + 1, cfg.depth_scale,
+                                    cfg.min_depth, cfg.max_depth)
+    return {"intensity": pyr.intensity[level], "xi": pyr.xi[level],
+            "mask": pyr.mask[level].astype(np.float32)}
+
+
+def _counted_score(scorer: RelocScorer, templates, currents):
+    """``score_pairs`` under the sync-debug mode. Returns (result, the
+    scorer's launches, its reads, the syncs PyTorch reported, launches
+    added to the per-frame ESM count: must be 0)."""
+    torch.cuda.synchronize()
+    l0, r0 = scorer.launches, scorer.host_reads
+    frame0 = kernels.esm_residuals_and_normal_eq.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = scorer.score_pairs(templates, currents)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum(str(w.message).startswith("called a synchronizing") for w in caught)
+    return (res, scorer.launches - l0, scorer.host_reads - r0, syncs,
+            kernels.esm_residuals_and_normal_eq.launches - frame0)
+
+
+def _margins_text(scorer: RelocScorer, res, i: int) -> str:
+    return ", ".join(f"{k} {v:+.4g}" for k, v in scorer.margins(res, i).items())
+
+
+def phase_scorer():
+    """``RelocScorer`` on the card against the same scorer on the CPU, on
+    three pairs from the loop sequence at VGA, ``reloc_level`` 2: a revisit
+    (frame 0 seen again from the third-last pose of the loop), an adjacent
+    pair (frames 10 and 12), and an unrelated pair (frame 0 against the
+    same pose in a room with other textures). The same ``accept`` on every
+    pair, T within SCORER_POSE_TOL where both accept, every margin printed;
+    exactly 3 x reloc_iters launches per pair, all in the scorer's own
+    count, and one read (= one sync) per call."""
+    cfg = default_config()
+    frames, gt = make_loop_sequence()
+    other, _ = make_loop_sequence(seed=5, n=1)
+    on_card = RelocScorer(TUM_FR1, cfg, "cuda")
+    on_cpu = RelocScorer(TUM_FR1, cfg, "cpu")
+    planes = {i: _host_planes(frames[i], cfg, on_card.level) for i in (0, 10, 12, len(gt) - 3)}
+    pairs = [("revisit", planes[0], planes[len(gt) - 3], True),
+             ("adjacent", planes[10], planes[12], True),
+             ("unrelated", planes[0], _host_planes(other[0], cfg, on_card.level), False)]
+    templates, currents = [p[1] for p in pairs], [p[2] for p in pairs]
+    iters = cfg.backend.reloc_iters
+    on_card.score_pairs(templates[:1], currents[:1])  # warm-up
+    res, launches, reads, syncs, leaked = _counted_score(on_card, templates, currents)
+    ref = on_cpu.score_pairs(templates, currents)
+    again = on_card.score_pairs(templates, currents)
+    alone = on_card.score_pairs(templates[1:2], currents[1:2])
+    same = (all(np.array_equal(a, b) for a, b in zip(res, again))
+            and all(np.array_equal(a[0], b[1]) for a, b in zip(alone, res)))
+    ok = (launches == 3 * iters * len(pairs) and reads == 1 and syncs == 1 and leaked == 0
+          and on_cpu.launches == 0 and same)
+    print(f"[scorer] {len(pairs)} pairs at {on_card.intr_l.width}x{on_card.intr_l.height}: "
+          f"launches {launches} (expected 3 x {iters} x {len(pairs)} = "
+          f"{3 * iters * len(pairs)}), added to the per-frame count {leaked} (expected 0), reads "
+          f"{reads}, syncs {syncs} (expected 1 each); rerun and a pair scored alone "
+          f"bit-identical {same}")
+    for i, (name, _, _, expect) in enumerate(pairs):
+        a_card, a_cpu = on_card.accept(res, i), on_cpu.accept(ref, i)
+        dT = float(np.abs(res.T[i] - ref.T[i]).max())
+        good = a_card == a_cpu == expect and (dT <= SCORER_POSE_TOL or not expect)
+        ok &= good and bool(np.isfinite(res.T[i]).all())
+        print(f"[scorer] {name}: accept card {a_card} cpu {a_cpu} (expected {expect}), T max|d| "
+              f"card - cpu {dT:.2e} (tol {SCORER_POSE_TOL:.0e} where accepted); margins card: "
+              f"{_margins_text(on_card, res, i)}; cpu: {_margins_text(on_cpu, ref, i)} "
+              f"{'OK' if good else 'FAIL'}")
+    # The revisit's pose against the ground truth (T maps template points
+    # into the current frame).
+    T_gt = np.linalg.inv(gt[len(gt) - 3]) @ gt[0]
+    d_gt = float(np.abs(res.T[0] - T_gt)[:3, 3].max())
+    ok &= d_gt < 5e-3
+    print(f"[scorer] revisit translation against ground truth max|d| {d_gt * 1e3:.3f} mm "
+          f"(bound 5 mm)")
+
+    def wall(fn, reps=5):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    ms3 = wall(lambda: on_card.score_pairs(templates, currents))
+    ms1 = wall(lambda: on_card.score_pairs(templates[:1], currents[:1]))
+    cpu3 = wall(lambda: on_cpu.score_pairs(templates, currents), reps=1)
+    print(f"[scorer] score_pairs wall ms (uploads, {3 * iters} launches a pair, one read): "
+          f"1 pair {ms1:.2f}, 3 pairs {ms3:.2f}; the CPU scorer (plain versions), 3 pairs "
+          f"{cpu3:.1f}")
+    print(f"[scorer] {'OK' if ok else 'FAIL'}")
+    return ok, {"score_pairs_ms_1": ms1, "score_pairs_ms_3": ms3}
+
+
+def keyframe_ate(keyframes, poses, gt) -> float:
+    """ATE of keyframe poses against the ground truth of their founding
+    frames (timestamps are frame / 30)."""
+    idx = [int(round(kf.timestamp * 30.0)) for kf in keyframes]
+    gt0 = np.linalg.inv(gt[0])
+    return absolute_trajectory_error([gt0 @ gt[i] for i in idx], poses)["rmse"]
+
+
+def close_loop(slam, gt, device):
+    """What the back end does with a finished loop run, without ORB and
+    BoW: verify (last keyframe, keyframe 0) with the scorer on ``device``,
+    build the loop edge as ``LoopCloser.process_keyframe`` does, and
+    optimize the pose graph of the run's odometry edges plus that edge as
+    ``BackendThread._optimize`` does. Returns a dict of what came out."""
+    cfg = slam.config
+    kfs = slam.manager.keyframes
+    scorer = RelocScorer(slam.intr, cfg, device)
+    if scorer.device.type == "cuda":
+        res, launches, reads, syncs, leaked = _counted_score(
+            scorer, [kfs[0].reloc_planes], [kfs[-1].reloc_planes])
+    else:
+        res = scorer.score_pairs([kfs[0].reloc_planes], [kfs[-1].reloc_planes])
+        launches, reads, syncs, leaked = 0, scorer.host_reads, 0, 0
+    t0 = time.perf_counter()
+    scorer.score_pairs([kfs[0].reloc_planes], [kfs[-1].reloc_planes])
+    score_ms = (time.perf_counter() - t0) * 1e3
+    accepted = scorer.accept(res, 0)
+    pg = PoseGraph(cfg.backend.pg_iterations, cfg.backend.pg_damping)
+    for e in slam.manager.edges:
+        pg.add_edge(e.from_id, e.to_id, e.T_rel, e.information, robust=bool(e.episode))
+    edge = loop_edge(res, 0, kfs[0].kf_id, kfs[-1].kf_id)
+    pg.add_edge(edge["from_id"], edge["to_id"], edge["T_rel"], edge["information"], robust=True)
+    poses = [kf.T_wk.copy() for kf in kfs]
+    # Timed twice: the first call also loads scipy.sparse's solver.
+    optimize_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        result = pg.optimize(poses)
+        optimize_ms.append((time.perf_counter() - t0) * 1e3)
+    # The loop edge against the ground truth: T_rel maps the last
+    # keyframe's points into keyframe 0.
+    i_last = int(round(kfs[-1].timestamp * 30.0))
+    T_rel_gt = np.linalg.inv(gt[0]) @ gt[i_last]
+    return dict(
+        accepted=accepted, margins=_margins_text(scorer, res, 0), launches=launches, reads=reads,
+        syncs=syncs, leaked=leaked, score_ms=score_ms, optimize_ms=optimize_ms[1],
+        optimize_first_ms=optimize_ms[0],
+        n_edges=len(pg.edges), iterations=result["iterations"],
+        initial_error=result["initial_error"], final_error=result["final_error"],
+        finite=all(np.isfinite(T).all() for T in result["poses"]),
+        ate_before=keyframe_ate(kfs, poses, gt), ate_after=keyframe_ate(kfs, result["poses"], gt),
+        edge_err=float(np.abs(edge["T_rel"] - T_rel_gt)[:3, 3].max()),
+        expected_launches=3 * cfg.backend.reloc_iters,
+    )
+
+
+def phase_loop():
+    """The loop run: ``SlamSystem`` (the default configuration, back end
+    off, tight keyframe limits) over the closed path, with every check of a
+    main-path run, then ``close_loop`` on the card."""
+    good, launches, median, slam = phase_main(loop_config(), "loop", loop=True)
+    out = close_loop(slam, loop_path(LOOP_FRAMES), "cuda")
+    ok = (out["accepted"] and out["finite"] and out["launches"] == out["expected_launches"]
+          and out["reads"] == 1 and out["syncs"] == 1 and out["leaked"] == 0
+          and out["final_error"] <= out["initial_error"] + 1e-12
+          and out["ate_after"] <= out["ate_before"] + LOOP_PG_MARGIN_M)
+    print(f"[loop] score_pairs(keyframe 0, keyframe {len(slam.manager.keyframes) - 1}) on the "
+          f"card: accepted {out['accepted']} ({out['margins']}); launches {out['launches']} "
+          f"(expected {out['expected_launches']}), reads {out['reads']}, syncs {out['syncs']}, "
+          f"added to the per-frame count {out['leaked']}; loop edge translation against ground "
+          f"truth max|d| {out['edge_err'] * 1e3:.3f} mm; {out['score_ms']:.2f} ms")
+    print(f"[loop] PoseGraph.optimize over {len(slam.manager.keyframes)} keyframes, "
+          f"{out['n_edges']} edges ({len(slam.manager.edges)} odometry + 1 loop): "
+          f"{out['iterations']} iterations, error {out['initial_error']:.6g} -> "
+          f"{out['final_error']:.6g}, poses finite {out['finite']}, keyframe ATE "
+          f"{out['ate_before'] * 1e3:.3f} -> {out['ate_after'] * 1e3:.3f} mm (margin "
+          f"{LOOP_PG_MARGIN_M * 1e3:.1f} mm); {out['optimize_ms']:.2f} ms (first call "
+          f"{out['optimize_first_ms']:.2f} ms)")
+    print(f"[loop] {'OK' if ok else 'FAIL'}")
+    return good and ok, launches, median, out
 
 
 def main() -> int:
@@ -1060,24 +1406,31 @@ def main() -> int:
     ic_ok, ic_records, ic_timing = phase_ic_kernels()
     records.update(s_records)
     records.update(ic_records)
-    timing += s_timing + ic_timing
-    k_ok = k_ok and s_ok and ic_ok
+    r_ok, r_timing = phase_scorer_layouts(records)
+    timing += s_timing + ic_timing + r_timing
+    k_ok = k_ok and s_ok and ic_ok and r_ok
     runs = [("esm consensus off", slice_config(), False), ("default", default_config(), False),
             ("default mover", default_config(), True), ("ic lagged", ic_config("lagged"), False),
             ("ic exact", ic_config("exact"), False)]
     m_ok, total, median = True, dict.fromkeys(COUNTERS, 0), {}
     for label, run_cfg, mover in runs:
-        good, launches, median[label] = phase_main(run_cfg, label, mover)
+        good, launches, median[label], _ = phase_main(run_cfg, label, mover)
         m_ok &= good
         for k, v in launches.items():
             total[k] += v
+    # This slice's own path: loop verification and pose-graph correction.
+    sc_ok, scorer_ms = phase_scorer()
+    good, launches, median["loop"], loop_out = phase_loop()
+    m_ok &= sc_ok and good
+    for k, v in launches.items():
+        total[k] += v
     print(f"[main] ms/frame median in this call: " + ", ".join(
         f"{k} {v:.2f}" for k, v in median.items()) + f"; IC exact - IC lagged "
           f"{median['ic exact'] - median['ic lagged']:+.2f}, default - consensus off "
           f"{median['default'] - median['esm consensus off']:+.2f}")
     phase_times(records, timing)
     phase_profile(default_config())
-    # Counts summed over the five main-path runs. The scale step runs on
+    # Counts summed over the six main-path runs. The scale step runs on
     # the main path as phases of the IC exact launches: its ``launches`` is
     # that count, and its standalone launches (0 on the main path) stand
     # beside it.
@@ -1085,6 +1438,13 @@ def main() -> int:
                          ("fusion", "fusion"), ("ic_normal", "ic_normal_eq"),
                          ("ic_sigma", "ic_sigma_phases")):
         records[key]["launches"] = total[counter]
+    # The ESM kernel's launches on the loop-verification path, counted by
+    # the scorer (they never enter the per-frame count), stand beside the
+    # per-frame launches and inside the total.
+    records["esm"]["scorer_launches"] = loop_out["launches"]
+    records["esm"]["launches"] += loop_out["launches"]
+    records["esm"].update(scorer_ms, loop_score_ms=loop_out["score_ms"],
+                          loop_optimize_ms=loop_out["optimize_ms"])
     records["ic_sigma"]["standalone_launches"] = total["ic_sigma_stats"]
     kern = [records[k] for k in ("esm", "esm_stratified", "fusion", "ic_normal", "ic_sigma")]
     print(json.dumps({"kernels": kern}))

@@ -127,9 +127,19 @@ class Keyframe:
 
     kf_id: int
     timestamp: float
-    T_wk: np.ndarray  # camera-to-world pose
+    T_wk: np.ndarray  # camera-to-world pose (updated by the pose graph)
     rgb: np.ndarray  # founding frame's image, (H, W, 3) or gray (H, W) u8
+    # Founding frame's raw depth (H, W) u16; only the JAX package's live
+    # viewer fills it.
+    depth: Optional[np.ndarray] = None
     cloud: Optional[np.ndarray] = None  # (N, 6) xyz+rgb in keyframe coordinates
+    # Place-recognition payload (filled by the back end).
+    descriptors: Optional[np.ndarray] = None
+    keypoints: Optional[np.ndarray] = None
+    bow: Optional[dict] = None
+    # Host copies of the coarse planes (intensity, xi, mask at the reloc
+    # level) and the u8 gray image, filled by finalize.
+    reloc_planes: Optional[dict] = None
 
 
 def extract_cloud(

@@ -36,9 +36,11 @@ and their published sums, the stratified kernel's (16 x 64, 50) block
 partials, and three counter words (the last-block arrival count and the
 exact-mode grid barrier's arrivals, both 0 between launches, and its
 generation). The fusion kernel (mapping/fusion.py) uses it too.
-Launches go on the current stream, one after the other; two launches on
-two streams at once would share the workspace, and the port never makes
-them.
+Launches go on the launching thread's current stream, one after the
+other; two launches on two streams at once would share the workspace, and
+the port never makes them: the front end and the back end's scorer
+(backend/relocalization.py) both launch on the default stream, each
+thread's current stream unless it is changed.
 
 The TPU-only tiling of the Pallas wrappers (row tiles, padding to 8 or 16
 rows) is not carried over: a grid-stride loop over template pixels needs
@@ -47,6 +49,8 @@ none.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -84,6 +88,7 @@ class Workspace(NamedTuple):
 
 
 _WORKSPACES: dict = {}
+_WORKSPACE_LOCK = threading.Lock()
 
 
 def workspace(dev: torch.device) -> Workspace:
@@ -91,18 +96,43 @@ def workspace(dev: torch.device) -> Workspace:
     key = dev.index if dev.index is not None else torch.cuda.current_device()
     ws = _WORKSPACES.get(key)
     if ws is None:
-        sms = torch.cuda.get_device_properties(key).multi_processor_count
-        max_blocks = _BLOCKS_PER_SM * sms
-        ws = Workspace(
-            max_blocks,
-            torch.empty((max_blocks, _SUMS), dtype=torch.float32, device=dev),
-            torch.empty((max_blocks + 1, _SIGMA_SUMS), dtype=torch.float32, device=dev),
-            torch.empty((_build.MAX_STRATA * _STRATA_BLOCKS, STRATIFIED_SUMS),
-                        dtype=torch.float32, device=dev),
-            torch.zeros((3,), dtype=torch.int32, device=dev),
-        )
-        _WORKSPACES[key] = ws
+        with _WORKSPACE_LOCK:
+            return _WORKSPACES.get(key) or _make_workspace(key, dev)
     return ws
+
+
+def _make_workspace(key: int, dev: torch.device) -> Workspace:
+    sms = torch.cuda.get_device_properties(key).multi_processor_count
+    max_blocks = _BLOCKS_PER_SM * sms
+    ws = Workspace(
+        max_blocks,
+        torch.empty((max_blocks, _SUMS), dtype=torch.float32, device=dev),
+        torch.empty((max_blocks + 1, _SIGMA_SUMS), dtype=torch.float32, device=dev),
+        torch.empty((_build.MAX_STRATA * _STRATA_BLOCKS, STRATIFIED_SUMS),
+                    dtype=torch.float32, device=dev),
+        torch.zeros((3,), dtype=torch.int32, device=dev),
+    )
+    _WORKSPACES[key] = ws
+    return ws
+
+
+# The ESM launch count goes to ``esm_residuals_and_normal_eq.launches``, the
+# per-frame path's count, unless the launching thread has named another
+# owner: the back end's scorer launches from its own thread and keeps its
+# own count, so that neither count loses an update to the other thread.
+_COUNT = threading.local()
+
+
+@contextlib.contextmanager
+def count_launches_into(owner):
+    """Within the block, this thread's ESM launches add to
+    ``owner.launches`` instead of ``esm_residuals_and_normal_eq.launches``."""
+    before = getattr(_COUNT, "owner", None)
+    _COUNT.owner = owner
+    try:
+        yield owner
+    finally:
+        _COUNT.owner = before
 
 
 def _irls_step(out: torch.Tensor) -> IrlsStep:
@@ -173,7 +203,8 @@ def _esm_cuda(
         ws.counter.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "esm_irls_launch")
-    esm_residuals_and_normal_eq.launches += 1
+    owner = getattr(_COUNT, "owner", None) or esm_residuals_and_normal_eq
+    owner.launches += 1
     return _irls_step(out)
 
 

@@ -1,7 +1,7 @@
 """Frame and keyframe pyramids (NamedTuples of device tensors).
 
 Counterpart of ``rgbid_tpu/tracking/frames.py:19-160`` with float32 planes
-(the JAX package's ``plane_dtype`` is not ported; ROADMAP Queue 1 #13).
+(the JAX package's ``plane_dtype`` is not ported; ROADMAP Queue 1 #7).
 """
 
 from __future__ import annotations

@@ -51,9 +51,9 @@ def check_tracking_supported(t) -> None:
     """Raise NotImplementedError for a TrackingConfig setting this port does
     not run yet, naming the ROADMAP item that brings it."""
     unsupported = [
-        (t.plane_dtype != "f32", f"tracking.plane_dtype={t.plane_dtype!r}", "ROADMAP Queue 1 #13"),
-        (t.early_exit_tol > 0, "tracking.early_exit_tol > 0", "ROADMAP Queue 1 #13"),
-        (t.conv_skip_tol > 0, "tracking.conv_skip_tol > 0", "ROADMAP Queue 1 #13"),
+        (t.plane_dtype != "f32", f"tracking.plane_dtype={t.plane_dtype!r}", "ROADMAP Queue 1 #7"),
+        (t.early_exit_tol > 0, "tracking.early_exit_tol > 0", "ROADMAP Queue 1 #7"),
+        (t.conv_skip_tol > 0, "tracking.conv_skip_tol > 0", "ROADMAP Queue 1 #7"),
     ]
     for bad, what, item in unsupported:
         if bad:

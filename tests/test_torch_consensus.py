@@ -428,6 +428,64 @@ def test_convert_round_trips_streaks(mover_packed):
 
 
 # ---------------------------------------------------------------------------
+# (5b) the front end's bookkeeping against the JAX system
+
+
+def test_edges_reloc_planes_and_stats_match_jax_system(mover_clip):
+    """The whole walking-mover clip through both systems, back end off
+    (the JAX system's step is the program the per-frame test above has
+    compiled: equal (intrinsics, config) share it). The clip has switches
+    with and without consensus activity before them. Equal keyframe and
+    edge counts; per edge the same ids and episode tag, ``T_rel`` within
+    1e-5, ``information`` within 1e-4 of its largest entry (the two runs
+    are independent, so their poses differ by ~1e-6 and the covariance's
+    inverse amplifies that; measured 2.4e-7 and 1.1e-5); per keyframe the
+    ``reloc_planes`` keys and shapes, ``intensity0_u8`` bitwise, the
+    coarse xi within 1e-4 (measured 3.6e-5), the coarse intensity within
+    1e-6 (it never changes under fusion and differs by the blur's summation
+    order, 2e-7), at most 2 mask pixels apart (measured 0); and the
+    ``relocalized`` key in every tracked frame's record."""
+    from rgbid_tpu.system import SlamSystem as JSlamSystem
+
+    frames = list(mover_clip.frames())
+    jslam = JSlamSystem(QVGA, JSlamConfig().override(**MOVER_CFG))
+    for f in frames:
+        jslam.process_frame(f.rgb, f.depth, f.timestamp)
+    jslam.finish()
+    tslam = _port_run(frames, MOVER_CFG)
+    assert tslam.config.to_json() == jslam.config.to_json()
+    jk, tk = jslam.manager.keyframes, tslam.manager.keyframes
+    je, te = jslam.manager.edges, tslam.manager.edges
+    assert len(tk) == len(jk) >= 3 and len(te) == len(je) == len(tk) - 1
+    assert {e.episode for e in te} == {True, False}
+    scale = tslam.config.backend.episode_info_scale
+    for a, b in zip(te, je):
+        assert (a.from_id, a.to_id, a.episode) == (b.from_id, b.to_id, b.episode)
+        np.testing.assert_allclose(a.T_rel, b.T_rel, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(a.information, b.information, rtol=0,
+                                   atol=1e-4 * np.abs(b.information).max())
+    # An episode edge is softer than a clean one by about the configured scale.
+    soft = np.mean([np.trace(e.information) for e in te if e.episode])
+    stiff = np.mean([np.trace(e.information) for e in te if not e.episode])
+    assert soft < 100 * scale * stiff
+    for a, b in zip(tk, jk):
+        assert set(a.reloc_planes) == set(b.reloc_planes)
+        np.testing.assert_array_equal(a.reloc_planes["intensity0_u8"],
+                                      b.reloc_planes["intensity0_u8"])
+        np.testing.assert_allclose(a.reloc_planes["intensity"], b.reloc_planes["intensity"],
+                                   rtol=0, atol=1e-6)
+        assert a.reloc_planes["xi"].shape == b.reloc_planes["xi"].shape == (60, 80)
+        differ = a.reloc_planes["mask"] != b.reloc_planes["mask"]
+        assert differ.sum() <= 2
+        np.testing.assert_allclose(np.where(differ, 0, a.reloc_planes["xi"]),
+                                   np.where(differ, 0, b.reloc_planes["xi"]), rtol=0, atol=1e-4)
+        np.testing.assert_allclose(a.T_wk, b.T_wk, atol=1e-5)
+    for a, b in zip(tslam.stats[1:], jslam.stats[1:]):
+        assert a["relocalized"] is False and b["relocalized"] is False
+        assert a["kf_id"] == b["kf_id"] and a["switch"] == b["switch"]
+
+
+# ---------------------------------------------------------------------------
 # (6) the port's own runs
 
 

@@ -518,7 +518,7 @@ def test_ic_config_constructs_and_esm_consensus_raises():
                           device="cpu")
     assert esm.config.tracking.consensus and esm.config.tracking.jacobian == "esm"
     assert ttracking.Tracker(intr, TrackingConfig(jacobian="esm")).cfg.consensus
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #3"):
         port.SlamSystem(intr, port.SlamConfig(), device="cpu")
 
 

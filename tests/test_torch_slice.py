@@ -8,6 +8,7 @@ Slice configuration: ``SlamConfig()`` with ``tracking.consensus`` and
 
 import functools
 import os
+import re
 import subprocess
 import sys
 
@@ -193,6 +194,20 @@ def test_port_imports_no_jax_or_cv2():
         "poses = [slam.process_frame(*f) for f in frames]\n"
         "slam.finish()\n"
         "assert np.isfinite(poses[-1]).all() and len(slam.map_points()) > 0\n"
+        "assert len(slam.manager.edges) == len(slam.manager.keyframes) - 1\n"
+        "import rgbid_tpu_torch.backend.loop_closure, rgbid_tpu_torch.backend.features\n"
+        "import rgbid_tpu_torch.reference_cpu.odometry, rgbid_tpu_torch.native\n"
+        "from rgbid_tpu_torch.backend import BowDatabase, PoseGraph, RelocScorer\n"
+        "from rgbid_tpu_torch.backend.place_recognition import hamming_distances\n"
+        "db = BowDatabase(vocab_path='builtin')\n"
+        "rng = np.random.default_rng(0)\n"
+        "d = rng.integers(0, 256, (40, 32), dtype=np.uint8)\n"
+        "db.insert(0, d); assert db.query(99, d)[0][0] == 0\n"
+        "assert hamming_distances(d, d).trace() == 0\n"
+        "kfs = slam.manager.keyframes\n"
+        "sc = RelocScorer(intr, chip_smoke.slice_config(), 'cpu')\n"
+        "res = sc.score_pairs([kfs[0].reloc_planes], [kfs[0].reloc_planes])\n"
+        "assert np.isfinite(res.T).all() and sc.host_reads == 1\n"
         "ref = pathlib.Path('rgbid_tpu').resolve()\n"
         "files = [getattr(m, '__file__', None) for m in list(sys.modules.values())]\n"
         "ours = [f for f in files if f and pathlib.Path(f).resolve().is_relative_to(ref)]\n"
@@ -257,9 +272,18 @@ def test_chip_smoke_scene_on_cpu():
     ids=lambda o: next(iter(o)),
 )
 def test_unported_settings_raise(override):
+    """Each message names a ROADMAP item, and that item exists: ROADMAP.md
+    has a numbered entry of Queue 1 under that number which is not marked
+    done."""
     cfg = port.SlamConfig().override(**{**SLICE, **override})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #\d+") as err:
         port.SlamSystem(port.Intrinsics(*QVGA), cfg, device="cpu")
+    item = re.search(r"ROADMAP Queue 1 #(\d+)", str(err.value)).group(1)
+    roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
+    queue1 = roadmap.split("### Queue 1")[1].split("### Queue 2")[0]
+    entry = re.search(rf"^{item}\. \*\*(.*)$", queue1, re.M)
+    assert entry is not None, f"ROADMAP Queue 1 has no item #{item}"
+    assert "(done" not in entry.group(1).lower(), entry.group(1)
 
 
 def test_cuda_device_without_card_raises():
