@@ -38,8 +38,7 @@ otherwise. Phases, each printing its own lines:
    step lagged and exact. Then torch.profiler over tracked frames of one
    default-configuration run: device ops per frame (fused and not) and the
    largest of them. Profiling runs last, because it slows later launches.
-6. the back end without ORB, on the card (its thread stays out: it needs
-   ORB features, which the port does not extract yet). The ESM step at the
+6. the back end's own functions on the card. The ESM step at the
    six layouts ``RelocScorer`` gives it (VGA and 641x481 with ``reloc_level``
    2), against its plain version, in phase 3 and timed in phase 5. The
    scorer on the card against the scorer on the CPU on a revisit, an
@@ -53,6 +52,33 @@ otherwise. Phases, each printing its own lines:
    built as ``LoopCloser`` builds it, and ``PoseGraph.optimize`` over the
    run's edges plus that one: final <= initial error, finite poses, and
    the keyframe ATE no worse than before by more than 1 mm.
+7. [orb]: the port's numpy ORB on the loop sequence's first, third-last and
+   last frame at VGA: keypoints per octave, host ms per call, and the
+   Hamming distance of each descriptor's best match in the other view (the
+   last frame shows the first frame's image again: distance 0).
+8. [backend]: ``SlamConfig()`` as shipped, back end on (tight keyframe
+   limits, every gate of the back end at its default), over the loop
+   sequence, in turns with the same configuration with the back end off.
+   The thread runs beside the front end on the same stream and workspace:
+   it finalizes retired keyframes, extracts ORB, queries and feeds the BoW
+   database, verifies candidates with the scorer and optimizes the pose
+   graph. Checks: no exception swallowed, the thread dead and its queue
+   empty after ``finish()``; at least one loop closure found through
+   ``LoopCloser.process_keyframe``, each edge within 5 mm of ground truth;
+   the pose graph ran and did not raise its error; the ATE bounds; every
+   keyframe finalized, all but the last by the thread; reads = syncs with
+   every part named; per-frame launch counts those of the back-end-off
+   run and the scorer's 3 x ``reloc_iters`` per pair in its own count; and
+   the per-frame records of every run, on or off, equal bit for bit.
+   Prints the front end's ms/frame on against off, ``finish()``'s wait,
+   the thread's ms per keyframe event by part, and where the time of one
+   ``score_pairs`` call goes.
+9. [reloc]: ``SlamConfig()`` over a sweep that turns away from the start
+   view, three dropout frames (noise image, no depth), then the start view
+   again in a frame the tracker cannot place: ``process_frame`` itself
+   relocalizes against the BoW database (a record with ``relocalized``
+   true, a new keyframe within 40 mm of ground truth, an external loop
+   edge) and tracks on.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Imports no JAX and no OpenCV: the scene is
@@ -75,6 +101,8 @@ from scipy import ndimage
 import rgbid_tpu_torch as port
 from rgbid_tpu_torch.core import se3
 from rgbid_tpu_torch.core.camera import TUM_FR1, Intrinsics
+from rgbid_tpu_torch.backend import orb
+from rgbid_tpu_torch.backend.features import extract_orb
 from rgbid_tpu_torch.backend.loop_closure import loop_edge
 from rgbid_tpu_torch.backend.pose_graph import PoseGraph
 from rgbid_tpu_torch.backend.relocalization import SCORER_DAMPING, RelocScorer, mini_pyramid
@@ -84,7 +112,7 @@ from rgbid_tpu_torch.ops import _build, gauss_newton, kernels
 from rgbid_tpu_torch.ops.gauss_newton import ic_update
 from rgbid_tpu_torch.reference_cpu import odometry
 from rgbid_tpu_torch.tracking import consensus
-from rgbid_tpu_torch.tracking.step import ProcessFrame, frame_pyramid, pack_frame
+from rgbid_tpu_torch.tracking.step import ProcessFrame, frame_pyramid, gray_from_rgb, pack_frame
 from rgbid_tpu_torch.tracking.tracker import template_level
 
 N_FRAMES = 36
@@ -110,6 +138,15 @@ LOOP_FRAMES = 48
 LOOP_ATE_BOUND_M = 5e-3
 LOOP_MIN_KEYFRAMES = 6
 LOOP_PG_MARGIN_M = 1e-3
+# The back-end-on run: a loop edge found through BoW against ground truth
+# (the CPU run's one edge, keyframe 0 to 11, lies within 0.3 mm), and the
+# relocalized keyframe's position against ground truth. The CPU run
+# (tests/test_torch_smoke_backend.py::test_chip_smoke_reloc_on_cpu) recovers the pose
+# within 12 mm (the next two frames within 15 mm) from a frame with depth on its left 45% only, at the scorer's
+# 160x120; that test holds it to half of this bound.
+LOOP_EDGE_TOL_M = 5e-3
+RELOC_FRAMES = 34
+RELOC_POSE_TOL_M = 40e-3
 # Scorer on the card against the scorer on the CPU: the pose of a pair that
 # both accept. One IRLS step agrees with its plain version within 1e-6, and
 # 36 chained steps on a converging pair contract that difference (measured
@@ -266,12 +303,59 @@ def make_loop_sequence(intr: Intrinsics = TUM_FR1, n: int = LOOP_FRAMES, seed: i
     return frames, gt
 
 
+def reloc_path(n: int):
+    """A sweep that turns away from the start view: 1.3 rad of yaw toward
+    the side wall and past its end, so the last keyframes see the wall on
+    the right of the image and nothing on the left."""
+    poses = []
+    for i in range(n):
+        s = i / max(n - 1, 1)
+        T = np.eye(4)
+        T[:3, :3] = _rot(0.02 * np.sin(2.0 * np.pi * s), -1.3 * s, 0.0)
+        T[:3, 3] = [0.05 * s, 0.0, 0.05 * s]
+        poses.append(T)
+    return poses
+
+
+def make_reloc_sequence(intr: Intrinsics = TUM_FR1, n: int = RELOC_FRAMES, seed: int = 0):
+    """Frames and camera-to-world ground truth (None on dropout frames) of
+    the relocalization run: ``reloc_path``; three dropout frames (a noise
+    image without depth); the view of frame 2 again, with depth on the left
+    45% of the image only, so that the keyframe that was active before the
+    dropout (valid on its right) shares no valid pixel with it and the
+    tracker reports the frame lost, while keyframe 0 still covers it; then
+    the views of frames 3 and 4, whole. Returns (frames, gt, index of the
+    frame that must relocalize)."""
+    scene = make_scene(seed)
+    rng = np.random.default_rng(seed + 1)
+    path = reloc_path(n)
+    frames = [render(scene, intr, T, rng) for T in path]
+    gt = list(path)
+    noise = np.random.default_rng(seed + 2).integers(0, 255, frames[0][0].shape, dtype=np.uint8)
+    frames += [(noise, np.zeros_like(frames[0][1]))] * 3
+    gt += [None] * 3
+    i_reloc = len(frames)
+    for k in (2, 3, 4):
+        rgb, depth = render(scene, intr, path[k], rng)
+        if k == 2:
+            depth[:, int(0.45 * intr.width):] = 0
+        frames.append((rgb, depth))
+        gt.append(path[k])
+    return [(rgb, depth, i / 30.0) for i, (rgb, depth) in enumerate(frames)], gt, i_reloc
+
+
 def loop_config():
     """The default configuration (back end off) with keyframe limits tight
     enough for a chain of keyframes around the loop."""
     return default_config().override(
         **{"keyframe.max_translation": 0.08, "keyframe.max_rotation": 0.08}
     )
+
+
+def backend_config():
+    """``loop_config`` with the back end on, as ``SlamConfig()`` ships it:
+    every gate of the back end at its default."""
+    return loop_config().override(**{"backend.enabled": True})
 
 
 def slice_config():
@@ -1393,6 +1477,377 @@ def phase_loop():
     print(f"[loop] {'OK' if ok else 'FAIL'}")
     return good and ok, launches, median, out
 
+# ---------------------------------------------------------------------------
+# The back end on: ORB, the thread beside the front end, relocalization
+
+
+def phase_orb():
+    """The port's ORB on three VGA views of the loop sequence. The last
+    frame's pose is the first's and the renderer adds noise to depth only,
+    so its image, and every descriptor, must come out again; the third-last
+    frame is a near view, whose best matches are printed."""
+    frames, _ = make_loop_sequence()
+    views = {i: gray_from_rgb(frames[i][0]) for i in (0, len(frames) - 3, len(frames) - 1)}
+    feats, ms = {}, {}
+    for i, gray in views.items():
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            feats[i] = orb.detect_and_compute(gray, 500)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[i] = float(np.median(times))
+        pts, desc = extract_orb(gray, 500)
+        same = np.array_equal(pts, feats[i].pts) and np.array_equal(desc, feats[i].descriptors)
+        print(f"[orb] frame {i}: {len(pts)} keypoints, per octave "
+              f"{np.bincount(feats[i].octave, minlength=orb.N_LEVELS).tolist()}, "
+              f"{ms[i]:.1f} ms per call on this host (median of 5), extract_orb gives the same "
+              f"{same}")
+        if not same or pts.dtype != np.float32 or desc.dtype != np.uint8 or len(pts) == 0:
+            print("[orb] FAIL")
+            return False, ms
+
+    def best(a, b):
+        bits = np.unpackbits(a[:, None, :] ^ b[None, :, :], axis=2).sum(axis=2)
+        return bits.min(axis=1)
+
+    first, near, last = (feats[i].descriptors for i in views)
+    d_last, d_near = best(first, last), best(first, near)
+    ok = bool((d_last == 0).all()) and len(first) == len(last) and float(np.median(d_near)) <= 64
+    print(f"[orb] best-match Hamming distance from frame 0's descriptors: to the last frame "
+          f"(the same image) max {int(d_last.max())} (expected 0); to the third-last frame "
+          f"median {np.median(d_near):.0f}, {int((d_near <= 40).sum())} of {len(d_near)} within "
+          f"40 of 256 bits (bound: median at most 64)")
+    print(f"[orb] {'OK' if ok else 'FAIL'}")
+    return ok, ms
+
+
+def _frame_records(stats):
+    """The per-frame records without the wall time: what tracking decided."""
+    return [{k: v for k, v in rec.items() if k != "ms"} for rec in stats]
+
+
+def _drive(slam, frames, debug_syncs: bool):
+    """Reset the system and drive it over the frames through
+    ``process_frame`` and ``finish``. Returns what one run shows: per-frame
+    launch counts, the scorer's counts, reads by part, syncs, timings."""
+    slam.reset()
+    torch.cuda.synchronize()
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
+    step0, counts0 = slam._step.host_reads, slam.tracker_counts  # these outlive reset()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if debug_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for f in frames:
+                slam.process_frame(*f)
+            t0 = time.perf_counter()
+            slam.finish()
+            finish_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    out = {name: getattr(wrapper, attr) for name, (wrapper, attr) in COUNTERS.items()}
+    be = slam.backend
+    scorer = be.loop_closer.scorer if be is not None else None
+    out.update(
+        syncs=sum(str(w.message).startswith("called a synchronizing") for w in caught),
+        reads=slam.host_reads - step0, step_reads=slam._step.host_reads - step0,
+        finalize_reads=slam.manager.host_reads,
+        thread_finalizes=be.finalized if be is not None else 0,
+        scorer_reads=scorer.host_reads if scorer else 0,
+        scorer_launches=scorer.launches if scorer else 0,
+        scorer_steps=scorer.irls_steps if scorer else 0,
+        rescues=slam.tracker_counts["rescues"] - counts0["rescues"],
+        rerun_iters=slam.tracker_counts["rerun_iters"] - counts0["rerun_iters"],
+        closures=be.num_loop_closures if be is not None else 0,
+        errors=be.errors if be is not None else 0,
+        finish_ms=finish_ms, ms=np.array([r["ms"] for r in slam.stats[1:]]),
+        records=_frame_records(slam.stats), poses=slam.poses(),
+    )
+    return out
+
+
+def _reads_text(run, tracked: int):
+    """The run's host reads by part, as text, and whether the step's parts
+    add up: one result per tracked frame, one ``n_fused`` per fusion launch,
+    one read per vote and one per rescue."""
+    step = {"step results": tracked, "n_fused": run["fusion"], "votes": run["esm_stratified"],
+            "rescue evidence": run["rescues"]}
+    named = sum(step.values()) == run["step_reads"]
+    on_thread = run["thread_finalizes"]
+    return (", ".join(f"{k} {v}" for k, v in step.items())
+            + f" (= the step's {run['step_reads']}: {named}), finalizes on the thread {on_thread}, "
+            f"finalizes on the front end {run['finalize_reads'] - on_thread}, scorer calls "
+            f"{run['scorer_reads']}"), named
+
+
+def _score_breakdown(scorer: RelocScorer, template: dict, current: dict, rounds: int = 3) -> dict:
+    """Where the wall time of one one-pair ``score_pairs`` call goes: the
+    call's own steps, run one after the other with the card drained between
+    them (so the parts need not add up to the call, which overlaps them);
+    the median of ``rounds`` rounds after a warm-up round."""
+    dev = scorer.device
+    iters = scorer.cfg.backend.reloc_iters
+
+    def one_round():
+        parts = {}
+
+        def part(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            parts[name] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        t, c = part("upload (pin, copy) of both plane sets",
+                    lambda: (scorer._upload(template), scorer._upload(current)))
+        tp, cp = part("mini_pyramid of both", lambda: (mini_pyramid(t), mini_pyramid(c)))
+        part("level_args at 3 levels (gradients, back-projection)",
+             lambda: [scorer.level_args(tp[l], cp[l], scorer.intrs[l]) for l in (2, 1, 0)])
+        state = [torch.eye(4, device=dev), torch.full((), 0.01, device=dev),
+                 torch.full((), 0.0025, device=dev), None]
+
+        def align():
+            with kernels.count_launches_into(scorer):
+                for l in (2, 1, 0):
+                    state[:] = scorer._align_level(tp[l], cp[l], *state[:3], scorer.intrs[l])
+
+        part(f"level_args again + {3 * iters} IRLS launches", align)
+        part("result row, one read", lambda: torch.cat(
+            [state[0].reshape(-1), state[3].H.reshape(-1)]).cpu())
+        part("the whole call", lambda: scorer.score_pairs([template], [current]))
+        return parts
+
+    one_round()
+    got = [one_round() for _ in range(rounds)]
+    return {k: float(np.median([g[k] for g in got])) for k in got[0]}
+
+
+def phase_backend():
+    """The default configuration with the back end on over the loop
+    sequence, in turns with the back end off (see the module docstring,
+    item 8). Returns (ok, the counted on-run, timings for the JSON line)."""
+    frames, gt = make_loop_sequence()
+    tracked = len(frames) - 1
+    cfg_on, cfg_off = backend_config(), loop_config()
+    b = cfg_on.backend
+    print(f"[backend] SlamConfig() with keyframe.max_translation "
+          f"{cfg_on.keyframe.max_translation}, keyframe.max_rotation "
+          f"{cfg_on.keyframe.max_rotation}; the back end's gates at their defaults: "
+          f"min_keyframe_gap {b.min_keyframe_gap}, min_score {b.min_score}, rel_score "
+          f"{b.rel_score}, max_candidates {b.max_candidates}, num_features {b.num_features}, "
+          f"vocab_path {b.vocab_path!r}, reloc_level {b.reloc_level}, reloc_iters {b.reloc_iters}")
+    systems = {True: port.SlamSystem(TUM_FR1, cfg_on, device="cuda"),
+               False: port.SlamSystem(TUM_FR1, cfg_off, device="cuda")}
+    for slam in systems.values():  # warm-up
+        _drive(slam, frames[:6], False)
+    # Two counted runs under the sync-debug mode, then timed runs in turns.
+    counted = {on: _drive(systems[on], frames, True) for on in (False, True)}
+    on, off = counted[True], counted[False]
+    slam = systems[True]
+    be, lc = slam.backend, slam.backend.loop_closer
+    kfs = slam.manager.keyframes
+    n_kf = len(kfs)
+    ok = True
+
+    def check(name, good, text):
+        nonlocal ok
+        ok &= bool(good)
+        print(f"[backend] {name}: {text} {'OK' if good else 'FAIL'}")
+
+    check("thread", be.errors == 0 and not be.alive and be._queue.empty(),
+          f"errors {be.errors}, alive after finish() {be.alive}, queue empty "
+          f"{be._queue.empty()};")
+    idx = {kf.kf_id: int(round(kf.timestamp * 30.0)) for kf in kfs}
+    edge_err = [float(np.abs(e["T_rel"] - np.linalg.inv(gt[idx[e["from_id"]]])
+                             @ gt[idx[e["to_id"]]])[:3, 3].max()) for e in be._loop_edges]
+    check("loop closures", be.num_loop_closures >= 1 and lc.n_accepted == be.num_loop_closures
+          and lc.n_queries == n_kf and lc.n_accepted <= lc.n_candidates
+          and all(e < LOOP_EDGE_TOL_M for e in edge_err)
+          and all(e["to_id"] - e["from_id"] >= b.min_keyframe_gap for e in be._loop_edges),
+          f"{n_kf} keyframes, {lc.n_queries} BoW queries, {lc.n_candidates} candidates, "
+          f"{lc.n_accepted} accepted by the scorer = {be.num_loop_closures} loop edges "
+          f"{[(e['from_id'], e['to_id']) for e in be._loop_edges]}, translation against ground "
+          f"truth max|d| {[round(e * 1e3, 3) for e in edge_err]} mm (bound "
+          f"{LOOP_EDGE_TOL_M * 1e3:.0f} mm); ORB keypoints per keyframe "
+          f"{[len(kf.descriptors) for kf in kfs]};")
+    res = be.last_result
+    ate_on, ate_off = sequence_ate(gt, on["poses"]), sequence_ate(gt, off["poses"])
+    kf_on = keyframe_ate(kfs, [kf.T_wk for kf in kfs], gt)
+    kfs_off = systems[False].manager.keyframes
+    kf_off = keyframe_ate(kfs_off, [kf.T_wk for kf in kfs_off], gt)
+    check("pose graph", res is not None and res["final_error"] <= res["initial_error"] + 1e-12
+          and all(np.isfinite(T).all() for T in on["poses"]) and ate_on <= LOOP_ATE_BOUND_M
+          and kf_on <= kf_off + LOOP_PG_MARGIN_M,
+          (f"last optimize {res['iterations']} iterations, error {res['initial_error']:.6g} -> "
+           f"{res['final_error']:.6g}; " if res else "never ran; ")
+          + f"ATE on {ate_on * 1e3:.3f} mm, off {ate_off * 1e3:.3f} mm (bound "
+          f"{LOOP_ATE_BOUND_M * 1e3:.1f} mm); keyframe ATE on {kf_on * 1e3:.3f} mm, off "
+          f"{kf_off * 1e3:.3f} mm (margin {LOOP_PG_MARGIN_M * 1e3:.1f} mm);")
+    check("finalizes", all(kf.cloud is not None and kf.reloc_planes is not None
+                           and kf.descriptors is not None for kf in kfs)
+          and on["thread_finalizes"] == n_kf - 1 and on["finalize_reads"] == n_kf,
+          f"every keyframe has its cloud, planes and descriptors; {on['thread_finalizes']} of "
+          f"{n_kf} finalized by the thread (expected all but the last);")
+    for name, run in (("off", off), ("on", on)):
+        text, named = _reads_text(run, tracked)
+        check(f"reads, back end {name}", named and run["syncs"] == run["reads"]
+              == run["step_reads"] + run["finalize_reads"] + run["scorer_reads"],
+              f"{run['reads']} host reads, {run['syncs']} syncs reported by the sync-debug mode "
+              f"(process-wide: the thread's too): {text};")
+    expected = expected_launches(cfg_on.tracking, tracked, on["rerun_iters"], on["rescues"])
+    per_frame = {k: on[k] for k in COUNTERS}
+    pairs = lc.n_candidates
+    check("launches", per_frame == {k: off[k] for k in COUNTERS}
+          and all(on[k] == v for k, v in expected.items())
+          and on["scorer_launches"] == on["scorer_steps"] == 3 * b.reloc_iters * pairs
+          and on["scorer_reads"] == len(be.timings.get("score_pairs", []))
+          and on["fusion"] == sum(r.get("n_fused", 0) > 0 for r in on["records"]),
+          f"per-frame counts on {per_frame} = off; the scorer's own count "
+          f"{on['scorer_launches']} (expected 3 x {b.reloc_iters} x {pairs} pairs = "
+          f"{3 * b.reloc_iters * pairs}) in {on['scorer_reads']} calls;")
+
+    # Timed runs in turns; every run's records against the first's.
+    timed = {True: [], False: []}
+    timings = {}
+    for is_on in (False, True, True, False):
+        run = _drive(systems[is_on], frames, False)
+        timed[is_on].append(run)
+        if is_on:
+            for k, v in systems[True].backend.timings.items():
+                timings.setdefault(k, []).extend(v)
+    runs = [off, on] + timed[False] + timed[True]
+    same = all(r["records"] == off["records"] for r in runs)
+    closures = [r["closures"] for r in timed[True]]
+    check("records", same and len(off["records"]) == len(frames),
+          f"the per-frame records (keyframe id, error, overlap, inliers, n_fused, switch, lost, "
+          f"relocalized, the consensus fields) of {len(runs)} runs, half of them with the back "
+          f"end on, equal bit for bit {same};")
+    ok &= all(r["thread_finalizes"] == n_kf - 1 and r["closures"] >= 1 and r["errors"] == 0
+              for r in timed[True])
+
+    def front(rs):
+        ms = np.concatenate([r["ms"][4:] for r in rs])
+        return float(np.median(ms)), float(ms.mean())
+
+    (med_on, mean_on), (med_off, mean_off) = front(timed[True]), front(timed[False])
+    finish_on = [round(r["finish_ms"], 1) for r in timed[True]]
+    finish_off = [round(r["finish_ms"], 1) for r in timed[False]]
+    print(f"[backend] front end ms/frame (process_frame's own clock, frames 5..{tracked} of two "
+          f"runs each, in turns off/on/on/off): on median {med_on:.2f} mean {mean_on:.2f}, off "
+          f"median {med_off:.2f} mean {mean_off:.2f}; the thread costs the front end "
+          f"{med_on - med_off:+.2f} ms/frame in the median, {mean_on - mean_off:+.2f} in the "
+          f"mean; finish() waits {finish_on} ms on, {finish_off} ms off; loop closures in the "
+          f"timed on-runs {closures}")
+    # The same comparison with the interpreter handing the GIL over every
+    # 0.5 ms instead of every 5 ms: how much of the cost is the front end
+    # waiting for the thread's Python to yield. Printed, not checked.
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(5e-4)
+    try:
+        short = {is_on: _drive(systems[is_on], frames, False) for is_on in (False, True)}
+    finally:
+        sys.setswitchinterval(interval)
+    ok &= all(r["records"] == off["records"] for r in short.values())
+    (s_on, sm_on), (s_off, sm_off) = front([short[True]]), front([short[False]])
+    print(f"[backend] with sys.setswitchinterval(0.0005) (default {interval}), one run each: on "
+          f"median {s_on:.2f} mean {sm_on:.2f}, off median {s_off:.2f} mean {sm_off:.2f}: "
+          f"{s_on - s_off:+.2f} ms/frame in the median, {sm_on - sm_off:+.2f} in the mean")
+    print("[backend] the thread's host ms per keyframe event, by part (median, max, events, "
+          "over the two timed runs): " + "; ".join(
+              f"{k} {np.median(v):.2f}, {np.max(v):.2f}, {len(v)}" for k, v in timings.items()))
+    parts = _score_breakdown(lc.scorer, kfs[0].reloc_planes, kfs[-1].reloc_planes)
+    print("[backend] one score_pairs call on (keyframe 0, last keyframe), its steps run one "
+          "after the other with the card drained between them, ms: "
+          + "; ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    print(f"[backend] {'OK' if ok else 'FAIL'}")
+    record = {"backend_ms_frame_on": med_on, "backend_ms_frame_off": med_off,
+              "backend_ms_frame_on_short_switch": s_on, "backend_ms_frame_off_short_switch": s_off,
+              "backend_finish_ms": float(np.median(finish_on)),
+              "thread_ms": {k: float(np.median(v)) for k, v in timings.items()}}
+    return ok, on, record
+
+
+def phase_reloc():
+    """The relocalization run (the module docstring, item 9). Returns (ok,
+    the run)."""
+    frames, gt, i_reloc = make_reloc_sequence()
+    cfg = port.SlamConfig()
+    slam = port.SlamSystem(TUM_FR1, cfg, device="cuda")
+    # The database must hold the sweep's keyframes before the dropout, so
+    # the drive waits for the thread there. A live user would not: a
+    # keyframe that arrives later is only a candidate later.
+    torch.cuda.synchronize()
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i, f in enumerate(frames):
+                if i == RELOC_FRAMES:
+                    deadline = time.time() + 60.0
+                    want = len(slam.manager.keyframes) - 1
+                    while slam.backend.loop_closer.n_queries < want and time.time() < deadline:
+                        time.sleep(0.01)
+                slam.process_frame(*f)
+            slam.finish()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum(str(w.message).startswith("called a synchronizing") for w in caught)
+    launches = {name: getattr(wrapper, attr) for name, (wrapper, attr) in COUNTERS.items()}
+    be, lc = slam.backend, slam.backend.loop_closer
+    stats, kfs = slam.stats, slam.manager.keyframes
+    tracked = len(frames) - 1
+    lost = [i for i, rec in enumerate(stats) if rec.get("lost")]
+    relocalized = [i for i, rec in enumerate(stats) if rec.get("relocalized")]
+    new = kfs[stats[i_reloc]["kf_id"]]
+    T_gt = np.linalg.inv(gt[0]) @ gt[i_reloc]
+    # The keyframe's pose as founded (the trajectory row moves with later
+    # pose-graph updates; the loop edge holds what the scorer measured).
+    ext = [e for e in be._loop_edges if e["to_id"] == new.kf_id]
+    err_kf = float(np.linalg.norm(new.T_wk[:3, 3] - T_gt[:3, 3]))
+    after = [float(np.linalg.norm(slam.poses()[i][:3, 3] - (np.linalg.inv(gt[0]) @ gt[i])[:3, 3]))
+             for i in (i_reloc + 1, i_reloc + 2)]
+    counts = slam.tracker_counts
+    expected = expected_launches(cfg.tracking, tracked, counts["rerun_iters"], counts["rescues"])
+    iters = cfg.backend.reloc_iters
+    pairs, rest = divmod(lc.scorer.irls_steps, 3 * iters)
+    reads = slam.host_reads
+    ok = (be.errors == 0 and not be.alive and be._queue.empty()
+          and lost == list(range(RELOC_FRAMES, i_reloc + 1)) and relocalized == [i_reloc]
+          and new.timestamp == frames[i_reloc][2] and len(ext) == 1
+          and err_kf < RELOC_POSE_TOL_M and all(e < RELOC_POSE_TOL_M for e in after)
+          and syncs == reads
+          and all(launches[k] == v for k, v in expected.items())
+          and launches["fusion"] == sum(rec.get("n_fused", 0) > 0 for rec in stats)
+          and lc.scorer.launches == lc.scorer.irls_steps and rest == 0
+          and pairs > lc.n_candidates >= 0
+          and all(np.isfinite(T).all() for T in slam.poses()))
+    print(f"[reloc] SlamConfig() over {len(frames)} VGA frames: {RELOC_FRAMES} of a 1.3 rad "
+          f"sweep, 3 dropout frames, then the views of frames 2 (depth on the left 45% only), 3 "
+          f"and 4; {len(kfs)} keyframes, lost frames {lost}, relocalized frames {relocalized} "
+          f"(expected [{i_reloc}]), thread errors {be.errors}, alive {be.alive}")
+    print(f"[reloc] frame {i_reloc} founded keyframe {new.kf_id} {err_kf * 1e3:.2f} mm from "
+          f"ground truth (bound {RELOC_POSE_TOL_M * 1e3:.0f} mm), external loop edge(s) "
+          f"{[(e['from_id'], e['to_id']) for e in ext]}; the next two frames tracked "
+          f"{[round(e * 1e3, 2) for e in after]} mm from ground truth; loop edges in all "
+          f"{be.num_loop_closures}, of which the thread's {lc.n_accepted}")
+    print(f"[reloc] host reads {reads} (step {slam._step.host_reads}, finalizes "
+          f"{slam.manager.host_reads} of which on the thread {be.finalized}, scorer calls "
+          f"{lc.scorer.host_reads}) = syncs {syncs}; per-frame counts {launches} (expected "
+          f"{expected}); scorer launches {lc.scorer.launches} = 3 x {iters} x {pairs} pairs, "
+          f"{lc.n_candidates} of them the thread's, the rest the front end's relocalization "
+          f"attempts; ms of the frames with an attempt "
+          f"{[stats[i]['ms'] for i in lost[2:]]}, median of the others "
+          f"{np.median([rec['ms'] for rec in stats[5:RELOC_FRAMES]]):.2f}")
+    print(f"[reloc] {'OK' if ok else 'FAIL'}")
+    return ok, dict(launches, scorer_launches=lc.scorer.launches)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1424,13 +1879,22 @@ def main() -> int:
     m_ok &= sc_ok and good
     for k, v in launches.items():
         total[k] += v
+    # The back end on: ORB, the thread beside the front end, relocalization.
+    o_ok, orb_ms = phase_orb()
+    b_ok, backend_run, backend_record = phase_backend()
+    rl_ok, reloc_run = phase_reloc()
+    m_ok &= o_ok and b_ok and rl_ok
+    for run in (backend_run, reloc_run):
+        for k in COUNTERS:
+            total[k] += run[k]
     print(f"[main] ms/frame median in this call: " + ", ".join(
         f"{k} {v:.2f}" for k, v in median.items()) + f"; IC exact - IC lagged "
           f"{median['ic exact'] - median['ic lagged']:+.2f}, default - consensus off "
           f"{median['default'] - median['esm consensus off']:+.2f}")
     phase_times(records, timing)
     phase_profile(default_config())
-    # Counts summed over the six main-path runs. The scale step runs on
+    # Counts summed over the six main-path runs, the counted back-end-on run
+    # and the relocalization run. The scale step runs on
     # the main path as phases of the IC exact launches: its ``launches`` is
     # that count, and its standalone launches (0 on the main path) stand
     # beside it.
@@ -1440,11 +1904,15 @@ def main() -> int:
         records[key]["launches"] = total[counter]
     # The ESM kernel's launches on the loop-verification path, counted by
     # the scorer (they never enter the per-frame count), stand beside the
-    # per-frame launches and inside the total.
-    records["esm"]["scorer_launches"] = loop_out["launches"]
-    records["esm"]["launches"] += loop_out["launches"]
+    # per-frame launches and inside the total: close_loop's pair, the
+    # back-end thread's candidates and the relocalization attempts.
+    scorer_launches = (loop_out["launches"] + backend_run["scorer_launches"]
+                       + reloc_run["scorer_launches"])
+    records["esm"]["scorer_launches"] = scorer_launches
+    records["esm"]["launches"] += scorer_launches
     records["esm"].update(scorer_ms, loop_score_ms=loop_out["score_ms"],
-                          loop_optimize_ms=loop_out["optimize_ms"])
+                          loop_optimize_ms=loop_out["optimize_ms"],
+                          orb_ms=float(np.median(list(orb_ms.values()))), **backend_record)
     records["ic_sigma"]["standalone_launches"] = total["ic_sigma_stats"]
     kern = [records[k] for k in ("esm", "esm_stratified", "fusion", "ic_normal", "ic_sigma")]
     print(json.dumps({"kernels": kern}))

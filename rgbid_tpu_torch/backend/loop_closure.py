@@ -11,13 +11,17 @@ The thread gives the device work of two kinds: the deferred finalize's one
 packed read and the scorer's launches and one read per keyframe event. Both
 go on the default stream, like the front end's. The thread never dies of an
 exception in its per-keyframe work; it counts them (``errors``), and a run
-that is meant to be healthy checks that count.
+that is meant to be healthy checks that count. ``timings`` keeps the host
+milliseconds of each part of every keyframe event (finalize, ORB, BoW query
+and insert, ``score_pairs``, ``optimize``): two clock reads a part.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
+import time
 import traceback
 from typing import Dict, List, Optional
 
@@ -47,6 +51,16 @@ def loop_edge(res, i: int, from_id: int, to_id: int) -> dict:
     }
 
 
+@contextlib.contextmanager
+def _timed(timings: Dict[str, List[float]], part: str):
+    """Append the block's wall milliseconds to ``timings[part]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        timings.setdefault(part, []).append((time.perf_counter() - t0) * 1e3)
+
+
 class LoopCloser:
     """Detect + verify loop closures for a stream of finalized keyframes."""
 
@@ -72,6 +86,7 @@ class LoopCloser:
         self.n_queries = 0
         self.n_candidates = 0
         self.n_accepted = 0
+        self.timings: Dict[str, List[float]] = {}
 
     def process_keyframe(self, kf: Keyframe, keyframes: List[Keyframe]) -> List[dict]:
         """Returns accepted loop edges:
@@ -79,10 +94,12 @@ class LoopCloser:
         planes = kf.reloc_planes
         if planes is None:
             return []
-        pts, desc = features.extract_orb(planes["intensity0_u8"], self.cfg.backend.num_features)
+        with _timed(self.timings, "orb"):
+            pts, desc = features.extract_orb(planes["intensity0_u8"],
+                                             self.cfg.backend.num_features)
         kf.keypoints, kf.descriptors = pts, desc
 
-        with self.db_lock:
+        with _timed(self.timings, "bow"), self.db_lock:
             candidates = self.db.query(kf.kf_id, desc)
             self.db.insert(kf.kf_id, desc)
             kf.bow = dict(self.db.entries.get(kf.kf_id, {}))
@@ -95,7 +112,8 @@ class LoopCloser:
         cands = [c for c in cands if c.reloc_planes is not None]
         if not cands:
             return []
-        res = self.scorer.score_pairs([c.reloc_planes for c in cands], [planes] * len(cands))
+        with _timed(self.timings, "score_pairs"):
+            res = self.scorer.score_pairs([c.reloc_planes for c in cands], [planes] * len(cands))
         edges = []
         for i, cand in enumerate(cands):
             if self.scorer.accept(res, i):
@@ -120,6 +138,8 @@ class BackendThread:
         self._dirty = False  # accepted edges awaiting an optimize pass
         self._processed = set()
         self.errors = 0  # exceptions swallowed by the thread
+        self.finalized = 0  # deferred finalizes done on the thread
+        self.timings = self.loop_closer.timings
         self.last_result: Optional[dict] = None
         self._thread = threading.Thread(target=self._run, daemon=True, name="slam-backend")
         self._thread.start()
@@ -181,7 +201,9 @@ class BackendThread:
             try:
                 if device_state is not None and kf.cloud is None:
                     # Deferred finalization (see submit).
-                    self.system.manager.finalize(kf, device_state)
+                    with _timed(self.timings, "finalize"):
+                        self.system.manager.finalize(kf, device_state)
+                    self.finalized += 1
                 edges = self.loop_closer.process_keyframe(kf, self.system.manager.keyframes)
                 if edges:
                     self._loop_edges.extend(edges)
@@ -219,7 +241,8 @@ class BackendThread:
             if e["from_id"] < n and e["to_id"] < n:
                 self.pg.add_edge(e["from_id"], e["to_id"], e["T_rel"], e["information"],
                                  robust=True)
-        result = self.pg.optimize(poses)
+        with _timed(self.timings, "optimize"):
+            result = self.pg.optimize(poses)
         with self._lock:
             self._optimized = {i: T for i, T in enumerate(result["poses"])}
         self.last_result = result

@@ -6,8 +6,8 @@ keyframe lifecycle and the odometry edges on the host, and a back-end
 thread (loop closure + pose graph) that consumes retired keyframes,
 finalizes them and publishes corrected poses, which the front end applies
 before each frame. Both threads launch on the default stream. The back
-end needs ORB features, which the port does not extract yet, so
-``backend.enabled=True`` raises at construction (``check_supported``).
+end's ORB features are host numpy (``backend/orb.py``): once per keyframe
+on the thread, once per relocalization attempt here.
 """
 
 from __future__ import annotations
@@ -40,9 +40,6 @@ def check_supported(cfg: SlamConfig) -> None:
     rows are ``check_tracking_supported``'s."""
     check_tracking_supported(cfg.tracking)
     unsupported = [
-        # The back end itself is ported; its ORB extractor is not.
-        (cfg.backend.enabled and not features.SUPPORTED,
-         "backend.enabled=True (no ORB extractor)", "ROADMAP Queue 1 #3"),
         (cfg.depth_codec != "u16", f"depth_codec={cfg.depth_codec!r}", "ROADMAP Queue 1 #7"),
         (cfg.viz.enabled, "viz.enabled=True", "ROADMAP Queue 1 #8"),
     ]

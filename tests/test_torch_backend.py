@@ -349,14 +349,25 @@ def test_bow_same_place_scores_higher(revisit_descs):
 
 
 def test_extract_orb_is_unported_and_the_system_refuses_the_back_end():
-    """Without an ORB extractor the default configuration raises at
-    construction, from ``SlamSystem.__init__`` and not from inside the
-    back-end thread, naming the ROADMAP item."""
-    assert not features.SUPPORTED
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #3"):
-        features.extract_orb(np.zeros((48, 64), np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #3"):
-        port.SlamSystem(Intrinsics(*QVGA), port.SlamConfig(), device="cpu")
+    """The name is from before the port had its own ORB, when this test
+    held the refusal. Now: ``extract_orb`` returns the reference's types
+    and widths (the empty case included), and the default configuration,
+    back end on, constructs with its thread alive, runs a frame and ends
+    the thread in ``finish()`` with nothing swallowed."""
+    assert not hasattr(features, "SUPPORTED")
+    pts, desc = features.extract_orb(np.zeros((48, 64), np.uint8))
+    assert pts.shape == (0, 2) and pts.dtype == np.float32
+    assert desc.shape == (0, 32) and desc.dtype == np.uint8
+    slam = port.SlamSystem(Intrinsics(*QVGA), port.SlamConfig(), device="cpu")
+    assert slam.config.backend.enabled and slam.backend is not None and slam.backend.alive
+    scene = synthetic.make_scene(seed=3)
+    rgb, d16, _, _ = synthetic.render_frame(scene, QVGA, np.eye(4))
+    slam.process_frame(rgb, d16, 0.0)
+    slam.finish()
+    assert not slam.backend.alive and slam.backend.errors == 0
+    kf = slam.manager.keyframes[0]
+    assert kf.descriptors is not None and kf.descriptors.shape[1] == 32
+    assert kf.keypoints.shape == (len(kf.descriptors), 2) and kf.keypoints.dtype == np.float32
 
 
 # ---------------------------------------------------------------------------

@@ -509,8 +509,9 @@ def test_ic_config_constructs_and_esm_consensus_raises():
     """The IC configuration constructs with consensus left on (the JAX
     package runs consensus only in ESM mode). ESM with consensus, which
     raised until the consensus was ported, now constructs in SlamSystem and
-    in Tracker; the default configuration still raises for its back end,
-    naming that ROADMAP item."""
+    in Tracker; the default configuration, which raised for its back end
+    until the port had its own ORB, constructs too, with the thread alive
+    until ``finish()``."""
     intr = Intrinsics(*QVGA)
     slam = port.SlamSystem(intr, port.SlamConfig().override(**IC), device="cpu")
     assert slam.config.tracking.consensus and slam.config.tracking.jacobian == "ic"
@@ -518,8 +519,10 @@ def test_ic_config_constructs_and_esm_consensus_raises():
                           device="cpu")
     assert esm.config.tracking.consensus and esm.config.tracking.jacobian == "esm"
     assert ttracking.Tracker(intr, TrackingConfig(jacobian="esm")).cfg.consensus
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #3"):
-        port.SlamSystem(intr, port.SlamConfig(), device="cpu")
+    full = port.SlamSystem(intr, port.SlamConfig(), device="cpu")
+    assert full.config.backend.enabled and full.backend.alive
+    full.finish()
+    assert not full.backend.alive and full.backend.errors == 0
 
 
 @pytest.mark.parametrize("mode", ["lagged", "exact"])

@@ -1,12 +1,8 @@
 """The port's ``SlamSystem`` with the back end on, on the CPU.
 
-The port has no ORB extractor yet, so ``backend.enabled=True`` raises at
-construction. These tests lift that the way a later ORB port will: they put
-the JAX package's OpenCV extractor in the place of
-``rgbid_tpu_torch.backend.features.extract_orb`` and set the flag
-``check_supported`` reads (``features.SUPPORTED``). Everything else is the
-port's own: the thread, deferred finalization, the BoW database, the scorer
-on ``esm_irls_step``'s plain version, the pose graph, the publication of
+Everything that runs is the port's own: its ORB extractor (numpy, no
+OpenCV), the thread, deferred finalization, the BoW database, the scorer on
+``esm_irls_step``'s plain version, the pose graph, the publication of
 corrected poses and relocalization.
 
 The clips, configurations and assertions are those of
@@ -22,10 +18,10 @@ import pytest
 import torch
 
 import rgbid_tpu_torch as port
-from rgbid_tpu.backend.features import extract_orb as cv2_extract_orb
 from rgbid_tpu.core.camera import Intrinsics as JIntrinsics
 from rgbid_tpu.datasets import synthetic
 from rgbid_tpu_torch.backend import features
+from rgbid_tpu_torch.backend import orb
 from rgbid_tpu_torch.core.camera import Intrinsics
 from rgbid_tpu_torch.eval import absolute_trajectory_error
 from rgbid_tpu_torch.reference_cpu import se3_np
@@ -35,16 +31,6 @@ torch.set_num_threads(2)
 
 QVGA = JIntrinsics(fx=258.6, fy=258.2, cx=159.3, cy=127.6, width=320, height=240)
 INTR = Intrinsics(*QVGA)
-
-
-@pytest.fixture(scope="module")
-def orb_lifted():
-    """OpenCV's ORB in the port's extractor's place, for this module."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(features, "extract_orb", cv2_extract_orb)
-    mp.setattr(features, "SUPPORTED", True)
-    yield
-    mp.undo()
 
 
 LOOP_CFG = {
@@ -62,7 +48,7 @@ LOOP_CFG = {
 
 
 @pytest.fixture(scope="module")
-def run(orb_lifted):
+def run():
     """tests/test_loop_closure.py's clip: a closed loop with noisy depth
     that revisits its start, keyframe thresholds tight enough for the BoW
     temporal gap."""
@@ -76,10 +62,17 @@ def run(orb_lifted):
 
 
 def test_back_end_raises_at_construction_without_orb():
-    """Runs before the module's ORB lift is set up (it asks for no fixture)."""
-    assert not features.SUPPORTED
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #3"):
-        port.SlamSystem(INTR, port.SlamConfig().override(**LOOP_CFG), device="cpu")
+    """The name is from before the port had its own ORB, when construction
+    raised. Now the back end constructs with no fixture: the extractor is
+    the port's numpy ORB, the thread is alive from construction and
+    ``finish()`` ends it."""
+    assert features.extract_orb.__module__ == "rgbid_tpu_torch.backend.features"
+    assert features.orb is orb
+    slam = port.SlamSystem(INTR, port.SlamConfig().override(**LOOP_CFG), device="cpu")
+    assert slam.backend is not None and slam.backend.alive
+    slam.finish()
+    assert not slam.backend.alive and slam.backend.errors == 0
+    assert slam.backend._queue.empty()
 
 
 def test_loop_closures_found(run):
@@ -166,7 +159,7 @@ def test_optimize_tolerates_concurrent_keyframe_append(run):
         backend.take_updates()
 
 
-def test_thread_counts_a_swallowed_exception(orb_lifted, monkeypatch):
+def test_thread_counts_a_swallowed_exception(monkeypatch):
     """An exception in the per-keyframe work does not kill the thread; it
     is counted, the queue keeps draining and ``finish`` returns."""
     cfg = port.SlamConfig().override(**LOOP_CFG)
@@ -190,7 +183,7 @@ def test_thread_counts_a_swallowed_exception(orb_lifted, monkeypatch):
     assert not slam.backend.alive
 
 
-def test_relocalizes_after_sensor_dropout(orb_lifted):
+def test_relocalizes_after_sensor_dropout():
     """tests/test_relocalization_recovery.py on the port: keyframes enter
     the BoW database, a sensor dropout loses tracking, and the recovery
     path finds the pose of an early view within 3 cm, founds a keyframe

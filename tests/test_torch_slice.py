@@ -262,7 +262,6 @@ def test_chip_smoke_scene_on_cpu():
     "override",
     [
         pytest.param({"depth_codec": "u16h"}, id="depth_codec=u16h"),
-        {"backend.enabled": True},
         {"tracking.plane_dtype": "bf16"},
         {"depth_codec": "u12"},
         {"tracking.early_exit_tol": 1e-5},

@@ -8,15 +8,15 @@ package's synthetic renderer) through ``rgbid_tpu_torch.SlamSystem`` on the
 CPU with the back end off and on, in turns, and prints the front end's
 median and mean ms per frame (``stats[i]["ms"]``: upload, step, reads and
 bookkeeping of ``process_frame``; the thread's own work is not in it) and
-the wall time of ``finish()``. The port has no ORB extractor yet, so the
-back-end-on runs put the JAX package's OpenCV extractor in its place, as
-the tests do; this script therefore imports ``rgbid_tpu`` and cv2 and runs
-only where they are installed. The back end holds the GIL in its
-pure-Python parts (``BowDatabase.query``), which is what this measures.
+the wall time of ``finish()``. The back end runs the port's own numpy ORB;
+the clip comes from the JAX package's renderer, so this script imports
+``rgbid_tpu`` (and with it cv2) and runs only where they are installed. The
+back end holds the GIL in its pure-Python parts (``BowDatabase.query``) and
+between the array operations of the ORB, which is what this measures.
 
 These are host CPU times of a machine without a GPU. They say nothing
-about the card; the same comparison on the card is chip_smoke.py's to make
-once the thread can run there.
+about the card; chip_smoke.py's ``[backend]`` phase makes the same
+comparison there.
 """
 
 from __future__ import annotations
@@ -32,10 +32,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import rgbid_tpu_torch as port  # noqa: E402
-from rgbid_tpu.backend.features import extract_orb as cv2_extract_orb  # noqa: E402
 from rgbid_tpu.core.camera import Intrinsics as JIntrinsics  # noqa: E402
 from rgbid_tpu.datasets import synthetic  # noqa: E402
-from rgbid_tpu_torch.backend import features  # noqa: E402
 
 QVGA = JIntrinsics(fx=258.6, fy=258.2, cx=159.3, cy=127.6, width=320, height=240)
 CFG = {
@@ -67,7 +65,6 @@ def main() -> int:
     ap.add_argument("--threads", type=int, default=2)
     args = ap.parse_args()
     torch.set_num_threads(args.threads)
-    features.extract_orb, features.SUPPORTED = cv2_extract_orb, True
     seq = synthetic.generate_sequence(n_frames=args.frames, intr=QVGA, motion="loop", radius=0.5,
                                       rot_amp=0.15, xi_noise_sigma=0.004, seed=2)
     frames = list(seq.frames())
