@@ -15,9 +15,11 @@ otherwise. Phases, each printing its own lines:
    evaluation followed by ``ic_update``, in every layout, in a few-valid
    case (the update suppressed) and in a rerun (bit-identical); the scale
    step alone, the one-launch fusion step (480x640 and 641x481, growth
-   on and off) and the consensus vote's stratified reduction (the VGA L2
-   and L1 layouts and the odd camera's, with analyze/decide on both sums)
-   are held to their plain versions and rerun;
+   on and off) and the consensus vote's stratified reduction (VGA and the
+   odd camera: the vote's L2 and L1 layouts, K 1 and 16, strata scrambled
+   pixel by pixel with one stratum empty, and L0, where some threads take
+   two pixels; analyze/decide on both sums where K is 6) are
+   held to their plain versions and rerun;
 4. main paths: SlamSystem over synthetic VGA sequences with known ground
    truth, five times, and a sixth over a closed loop (item 6): the ESM configuration with the consensus off, the
    default configuration (``SlamConfig()``, back end off: ESM with the
@@ -32,7 +34,9 @@ otherwise. Phases, each printing its own lines:
    fired on the mover, host reads against the syncs PyTorch reports, and
    run-to-run bit-identity, and prints ms/frame;
 5. times: each kernel and its plain version, with CUDA events and with
-   torch.profiler, beside the least time the card could take (bytes over
+   torch.profiler (the kernel's device time both ways: the profiler's
+   kernel durations, and CUDA events around calls run back to back behind
+   a spin), beside the least time the card could take (bytes over
    3.35 TB/s, or operations over 67 TFLOP/s f32); the ESM kernel at every
    pyramid level's layout, the stratified reduction at L2 and L1, the IC
    step lagged and exact. Then torch.profiler over tracked frames of one
@@ -462,6 +466,34 @@ def _device_ms(fn, reps: int = 20) -> float:
     return _time_ms(fn, reps)
 
 
+def _event_device_ms(fn, reps: int = 50) -> float:
+    """Device time per call from CUDA events, median of five rounds: a
+    spin kernel (``torch.cuda._sleep``) holds the stream while the host
+    enqueues ``reps`` calls, so they run back to back and the events time
+    the device (the gaps between launches included), not the host's launch
+    rate. A round whose spin ended before the host had enqueued every call
+    is taken again with a spin twice as long."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, rounds = 20_000_000, []
+    while len(rounds) < 5:
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        torch.cuda.synchronize()
+        if host_ms >= 0.8 * s.elapsed_time(a):
+            cycles *= 2
+            continue
+        rounds.append(a.elapsed_time(b) / reps)
+    return float(np.median(rounds))
+
+
 def _scaled_err(k: torch.Tensor, p: torch.Tensor):
     """(max |k - p|, max |k - p| / (2e-4 |p| + 1e-5 max|p|)): the second
     is <= 1 when every entry is inside the tolerance."""
@@ -500,10 +532,11 @@ F32_FLOPS = 67e12
 # + 3, residuals and weights ~26, Jacobians ~89 (ESM), the 32 sums ~180.
 # Each kernel is bytes-bound by more than 4x, so the counts only need to be
 # close.
-# The stratified reduction: the ESM point (~200) and its 50 masked sums
-# (~275), plus the stratum test of every block (~7 compares per stratum).
+# The stratified reduction: the ESM point (~200), its 50 masked terms
+# (~275), the stratum test (~7 compares) and the pixel's share of its
+# warp's group sums (~4).
 FLOPS_PER_PIXEL = {"esm": 385, "ic_normal": 256, "ic_sigma": 79, "fusion": 220,
-                   "esm_stratified": 520}
+                   "esm_stratified": 486}
 
 
 def _tensors(x):
@@ -803,18 +836,48 @@ def _verdicts(sums, level: int, tc, intr_l):
     return np.concatenate([np.atleast_1d(x) for x in out])
 
 
+def scrambled_xi(shape, edges: np.ndarray, empty: int, seed: int, odd_values: bool) -> np.ndarray:
+    """Inverse depths that put the strata pixel by pixel at random (so that
+    every 32 neighbouring pixels hold many strata), each inside its bin,
+    with stratum ``empty`` left out; ``odd_values`` adds NaN (above every
+    edge: the last stratum), values below the first edge (the first) and
+    above the last edge (the last)."""
+    rng = np.random.default_rng(seed)
+    k = len(edges) - 1
+    pick = rng.choice([j for j in range(k) if j != empty], size=shape)
+    mid = np.sqrt(edges[:-1] * edges[1:]).astype(np.float32)
+    xi = mid[pick]
+    if odd_values:
+        spots = rng.random(shape)
+        xi[spots < 0.03] = np.nan
+        xi[(spots >= 0.03) & (spots < 0.06)] = edges[0] * np.float32(0.5)
+        xi[(spots >= 0.06) & (spots < 0.09)] = edges[-1] * np.float32(2.0)
+    return xi
+
+
+# The stratified kernel's layouts: (level, K, strata). "depth" takes the
+# strata from the template inverse depth as the vote does; "scrambled"
+# from scrambled_xi, stratum 2 empty (at K 16 with NaN and out-of-range
+# values). L2 and L1 at K 6 are the vote's own; K 1 and 16 are the ends of
+# what the kernel takes; the scrambled layouts give every warp many
+# strata; L0 (240x320 template pixels) would take 19 clusters, more than
+# the workspace's 16 rows, so some threads take two pixels.
+STRATIFIED_LAYOUTS = [(2, 6, "depth"), (1, 6, "depth"), (2, 1, "depth"), (1, 16, "depth"),
+                      (2, 6, "scrambled"), (1, 16, "scrambled"), (0, 6, "depth")]
+EMPTY_STRATUM = 2
+
+
 def phase_stratified():
     """The consensus vote's stratified kernel against its plain version at
-    the vote layouts of the default configuration (L2 and L1, template
-    stride 2, VGA and the odd 641x481 camera; the mover sequence's frames
-    0 and 3, so that the panel fills a stratum): per stratum, H, G and b
-    within _scaled_err <= 1, n exact, the error within 1e-4 relative, a
-    rerun bit-identical, and analyze + decide giving the same flags on the
-    kernel's sums as on the plain ones."""
+    STRATIFIED_LAYOUTS (template stride as the default configuration,
+    VGA and the odd 641x481 camera; the mover sequence's frames 0 and 3,
+    so that the panel fills a stratum): per stratum, H, G and b within
+    _scaled_err <= 1, n exact, the error within 1e-4 relative, a rerun
+    bit-identical, the empty stratum's n 0, and at K 6 analyze + decide
+    giving the same flags on the kernel's sums as on the plain ones. The
+    vote's own layouts (VGA, L2 and L1, K 6) are timed."""
     cfg = default_config()
     tc = cfg.tracking
-    K = tc.consensus_bins
-    edges = consensus.stratum_edges(1.0 / cfg.max_depth, 1.0 / cfg.min_depth, K)
     strides = tuple(tc.template_stride) + (1,) * tc.levels
     s2i = torch.full((), tc.init_sigma_int**2, device="cuda")
     s2x = torch.full((), tc.init_sigma_xi**2, device="cuda")
@@ -826,10 +889,15 @@ def phase_stratified():
         kf = step.init_keyframe(torch.from_numpy(pack_frame(*frames[0][:2])).cuda())
         cur = frame_pyramid(torch.from_numpy(pack_frame(*frames[3][:2])).cuda(), cfg)
         T = torch.from_numpy(np.linalg.inv(gt[3]) @ gt[0]).float().cuda()
-        for lvl in (2, 1):
+        for lvl, K, strata_from in STRATIFIED_LAYOUTS:
+            edges = consensus.stratum_edges(1.0 / cfg.max_depth, 1.0 / cfg.min_depth, K)
             kl, pts = template_level(kf.levels[lvl], step.intrs[lvl], strides[lvl])
+            xi = kl.xi
+            if strata_from == "scrambled":
+                xi = torch.from_numpy(scrambled_xi(tuple(xi.shape), edges, EMPTY_STRATUM,
+                                                   10 * lvl + K, K == 16)).cuda()
             a = (T, kl.intensity, pts, kl.mask, kl.jac, cur[lvl].stack7, step.intrs[lvl],
-                 tc.student_t_nu, s2i, s2x, kl.xi, edges, tc.use_geometric, tc.gate_sigmas, True)
+                 tc.student_t_nu, s2i, s2x, xi, edges, tc.use_geometric, tc.gate_sigmas, True)
             k, k2, p = kernels.esm_stratified(*a), kernels.esm_stratified(*a), _stratified_plain(a)
             torch.cuda.synchronize()
             kh, ph = k.cpu().numpy(), p.cpu().numpy()
@@ -843,16 +911,24 @@ def phase_stratified():
             n_exact = bool(torch.equal(ku[2], pu[2]))
             err_rel = float(((ku[4] - pu[4]).abs() / pu[4].abs().clamp(min=1e-30)).max())
             same = bool(torch.equal(k, k2))
-            flags = np.array_equal(_verdicts(kh, lvl, tc, step.intrs[lvl]),
-                                   _verdicts(ph, lvl, tc, step.intrs[lvl]))
-            good = scaled <= 1.0 and n_exact and err_rel <= 1e-4 and same and flags
+            good = scaled <= 1.0 and n_exact and err_rel <= 1e-4 and same
+            extra = ""
+            if K == 6:
+                flags = np.array_equal(_verdicts(kh, lvl, tc, step.intrs[lvl]),
+                                       _verdicts(ph, lvl, tc, step.intrs[lvl]))
+                good &= flags
+                extra += f", analyze/decide flags equal {flags}"
+            if strata_from == "scrambled":
+                empty = float(kh[EMPTY_STRATUM, 27]) == 0.0 and int((ph[:, 27] > 0).sum()) == K - 1
+                good &= empty
+                extra += f", stratum {EMPTY_STRATUM} empty {empty}"
             ok &= good
-            print(f"[kernels] esm_stratified {cam} L{lvl}: template {tuple(kl.mask.shape)} stack "
-                  f"{tuple(cur[lvl].stack7.shape)} n per stratum {ph[:, 27].astype(int).tolist()} "
-                  f"H/b/G {scaled:.2f} of tol, n exact {n_exact}, err rel {err_rel:.1e} (tol "
-                  f"1e-4), rerun bit-identical {same}, analyze/decide flags equal {flags} "
-                  f"{'OK' if good else 'FAIL'}")
-            if cam == "VGA":
+            n_k = ph[:, 27].astype(int).tolist()
+            print(f"[kernels] esm_stratified {cam} L{lvl} K {K} {strata_from}: template "
+                  f"{tuple(kl.mask.shape)} stack {tuple(cur[lvl].stack7.shape)} n per stratum "
+                  f"{n_k} H/b/G {scaled:.2f} of tol, n exact {n_exact}, err rel {err_rel:.1e} "
+                  f"(tol 1e-4), rerun bit-identical {same}{extra} {'OK' if good else 'FAIL'}")
+            if cam == "VGA" and K == 6 and strata_from == "depth" and lvl in (2, 1):
                 timing.append(("esm_stratified", f"L{lvl}", lambda a: kernels.esm_stratified(*a),
                                _stratified_plain, a,
                                FLOPS_PER_PIXEL["esm_stratified"] * kl.mask.numel(),
@@ -1033,7 +1109,8 @@ def phase_ic_kernels():
 
 def phase_times(records, timing):
     """Each kernel and its plain version, timed in turns (plain, kernel,
-    kernel, plain) with CUDA events, then every device time with
+    kernel, plain) with CUDA events, the kernel's device time with CUDA
+    events (``_event_device_ms``), then every device time with
     torch.profiler, beside the kernel's bound. Runs after the main path,
     and takes all the event times before the first profiler window: once
     torch.profiler has been used, the process's kernel launches cost more
@@ -1046,19 +1123,25 @@ def phase_times(records, timing):
     for _, _, kernel, plain, args, *_ in timing:
         events.append((_time_ms(lambda: plain(args)), _time_ms(lambda: kernel(args)),
                        _time_ms(lambda: kernel(args)), _time_ms(lambda: plain(args))))
-    for (key, level, kernel, plain, args, flops, shape, reads), ev in zip(timing, events):
+    # Device time from CUDA events, the kernel's calls back to back behind
+    # a spin, beside the profiler's (taken after it, like every event time).
+    ev_dev = [_event_device_ms(lambda: kernel(args)) for _, _, kernel, _, args, *_ in timing]
+    for (key, level, kernel, plain, args, flops, shape, reads), ev, ev_dev_ms in zip(
+            timing, events, ev_dev):
         plain_ms, ms, ms2, plain_ms2 = ev
         dev_ms = _device_ms(lambda: kernel(args))
         plain_dev_ms = _device_ms(lambda: plain(args))
         bound_ms, bound_by, nbytes = _bound(reads, kernel(args), flops)
         print(f"[times] {key} {level} ({shape}): kernel {ms:.4f} / {ms2:.4f} ms, plain "
               f"{plain_ms:.4f} / {plain_ms2:.4f} ms per call (CUDA events, launch cost "
-              f"included); device time per call (profiler): kernel {dev_ms:.4f} ms, plain "
-              f"{plain_dev_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by} "
+              f"included); device time per call: kernel {dev_ms * 1e3:.2f} us (profiler), "
+              f"{ev_dev_ms * 1e3:.2f} us (CUDA events, back to back), plain "
+              f"{plain_dev_ms:.4f} ms (profiler); bound {bound_ms * 1e3:.2f} us by {bound_by} "
               f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} Mflop), bound / device time "
               f"{bound_ms / dev_ms:.1%}")
         rec = dict(level=level, shape=shape, ms=min(ms, ms2), plain_ms=min(plain_ms, plain_ms2),
-                   device_ms=dev_ms, plain_device_ms=plain_dev_ms, bound_ms=bound_ms,
+                   device_ms=dev_ms, event_device_ms=ev_dev_ms, plain_device_ms=plain_dev_ms,
+                   bound_ms=bound_ms,
                    bound_by=bound_by, bytes=nbytes, flops=flops)
         records[key].setdefault("levels", []).append(rec)
     # The top-level numbers of a record are those of its finest per-frame

@@ -145,7 +145,7 @@ class Library:
         I = ctypes.c_int
         lib.esm_irls_launch.argtypes = [EsmParams, I, I] + [P] * 14
         lib.esm_irls_launch.restype = I
-        lib.esm_stratified_launch.argtypes = [EsmParams, StrataParams, I, I, I] + [P] * 15
+        lib.esm_stratified_launch.argtypes = [EsmParams, StrataParams, I, I] + [P] * 15
         lib.esm_stratified_launch.restype = I
         lib.fusion_launch.argtypes = [FusionParams, I] + [P] * 16
         lib.fusion_launch.restype = I

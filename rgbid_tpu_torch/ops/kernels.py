@@ -32,10 +32,17 @@ the scale steps run inside IC launches.
 
 The launches share one per-card workspace (``workspace``): a (max_blocks,
 32) block partials buffer, a (max_blocks + 1, 3) buffer of scale-step rows
-and their published sums, the stratified kernel's (16 x 64, 50) block
-partials, and three counter words (the last-block arrival count and the
+and their published sums, the stratified launch's (16, 16 x 50) cluster
+rows, and three counter words (the last-block arrival count and the
 exact-mode grid barrier's arrivals, both 0 between launches, and its
-generation). The fusion kernel (mapping/fusion.py) uses it too.
+generation). The fusion kernel (mapping/fusion.py) uses it too. A
+stratified launch is one pass over the template in thread-block clusters
+of 16 blocks of 256 threads, one cluster per 4096 pixels (5 at the vote
+layouts; at most 16, after which threads take more pixels), each block
+with (8 + 16) x K x 50 floats of dynamic shared memory (76.8 KB at K =
+16): its warps' rows, and in rank 0 the cluster's block rows. Each
+cluster's rank 0 writes one cluster row; the last to arrive (the arrival
+count) sums them.
 Launches go on the launching thread's current stream, one after the
 other; two launches on two streams at once would share the workspace, and
 the port never makes them: the front end and the back end's scorer
@@ -67,7 +74,7 @@ _SUMS = 32  # irls::kNormalSums
 _SIGMA_SUMS = 3
 _OUT = 48 + 16 + 6  # irls::kOut: result, T', delta
 _BLOCKS_PER_SM = 3  # irls::kMinBlocksPerSm: the kernels' grid per SM at most
-_STRATA_BLOCKS = 64  # the stratified kernel's blocks per stratum at most
+_STRATA_CLUSTERS = 16  # a stratified launch's clusters at most
 
 
 class IrlsStep(NamedTuple):
@@ -83,7 +90,7 @@ class Workspace(NamedTuple):
     max_blocks: int
     partials: torch.Tensor  # (max_blocks, 32) float32
     sigma_rows: torch.Tensor  # (max_blocks + 1, 3) float32: block rows, then the step's sums
-    strata_partials: torch.Tensor  # (MAX_STRATA * _STRATA_BLOCKS, 50) float32
+    strata_partials: torch.Tensor  # (_STRATA_CLUSTERS, MAX_STRATA * 50) float32: cluster rows
     counter: torch.Tensor  # (3,) int32: arrivals, barrier arrivals, barrier generation
 
 
@@ -108,7 +115,7 @@ def _make_workspace(key: int, dev: torch.device) -> Workspace:
         max_blocks,
         torch.empty((max_blocks, _SUMS), dtype=torch.float32, device=dev),
         torch.empty((max_blocks + 1, _SIGMA_SUMS), dtype=torch.float32, device=dev),
-        torch.empty((_build.MAX_STRATA * _STRATA_BLOCKS, STRATIFIED_SUMS),
+        torch.empty((_STRATA_CLUSTERS, _build.MAX_STRATA * STRATIFIED_SUMS),
                     dtype=torch.float32, device=dev),
         torch.zeros((3,), dtype=torch.int32, device=dev),
     )
@@ -301,7 +308,7 @@ def _stratified_cuda(T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr: I
     out = torch.empty((k, STRATIFIED_SUMS), dtype=torch.float32, device=dev)
     status = _build.library().esm_stratified_launch(
         _esm_params(th * tw, cur_stack, intr, nu, use_geometric, gate_sigmas, occlusion_gate),
-        sp, c, _STRATA_BLOCKS, ws.strata_partials.shape[0], T.data_ptr(),
+        sp, c, ws.strata_partials.shape[0], T.data_ptr(),
         sigma2_int.data_ptr(), sigma2_xi.data_ptr(), kf_int.data_ptr(), Px.data_ptr(),
         Py.data_ptr(), Pz.data_ptr(), kf_mask.data_ptr(), kf_grads.data_ptr(),
         cur_stack.data_ptr(), xi.data_ptr(), ws.strata_partials.data_ptr(),

@@ -266,14 +266,30 @@ def qvga_pair():
     return kf, pyr1, np.linalg.inv(T1).astype(np.float32)
 
 
-@pytest.mark.parametrize("level", [1, 2])
-def test_stratified_plain_matches_jax(qvga_pair, level):
+# (level, K, strata): "depth" from the template inverse depth, "scrambled"
+# from chip_smoke.scrambled_xi with stratum 2 empty. The ids of the K = 6 depth
+# cases are the ones this test had before it took K and the strata.
+STRATIFIED_CASES = [
+    pytest.param(1, 6, "depth", id="1"),
+    pytest.param(2, 6, "depth", id="2"),
+    pytest.param(2, 1, "depth", id="2-K1"),
+    pytest.param(1, 16, "depth", id="1-K16"),
+    pytest.param(2, 6, "scrambled", id="2-K6-scrambled"),
+    pytest.param(1, 16, "scrambled", id="1-K16-scrambled"),
+]
+
+
+@pytest.mark.parametrize("level,k,strata_from", STRATIFIED_CASES)
+def test_stratified_plain_matches_jax(qvga_pair, level, k, strata_from):
     """The vote's reduction at QVGA L1 and L2 (template stride 2, fixed
     init sigmas, occlusion gate on, no cap), plain PyTorch and the
     ``esm_stratified`` wrapper on CPU tensors, against the JAX package's
-    ``stratified_normal_eq``: n exact (0/1 sums), H, G and b within 2e-4
-    of each entry plus 1e-5 of the stratum's largest entry (float32 sums in
-    another order), the error within 1e-4 relative."""
+    ``stratified_normal_eq``, for K = 1, 6 and 16 strata of the template
+    depth and for strata scrambled pixel by pixel (one stratum empty; at K
+    16 with NaN and out-of-range inverse depths too): n exact (0/1 sums),
+    H, G and b within 2e-4 of each entry plus 1e-5 of the stratum's largest
+    entry (float32 sums in another order), the error within 1e-4
+    relative."""
     kf, cur, T = qvga_pair
     tc = JTrackingConfig()
     kl, cl = kf.levels[level], cur[level]
@@ -283,9 +299,11 @@ def test_stratified_plain_matches_jax(qvga_pair, level):
     grads = kl.jac[:, ::s, ::s].astype(jnp.float32)
     pts = backproject_grid(xi, JIntrinsics(il.fx / s, il.fy / s, il.cx / s, il.cy / s,
                                            xi.shape[1], xi.shape[0]))
-    edges = tcons.stratum_edges(1.0 / 10.0, 1.0 / 0.3, K)
+    edges = tcons.stratum_edges(1.0 / 10.0, 1.0 / 0.3, k)
+    if strata_from == "scrambled":
+        xi = chip_smoke.scrambled_xi(xi.shape, edges, 2, 10 * level + k, odd_values=k == 16)
     s2i, s2x = np.float32(tc.init_sigma_int**2), np.float32(tc.init_sigma_xi**2)
-    strata = jcons.stratum_onehot(xi, mask, jnp.asarray(edges))
+    strata = jcons.stratum_onehot(jnp.asarray(xi), mask, jnp.asarray(edges))
     ref = jgn.stratified_normal_eq(jnp.asarray(T), kl.intensity[::s, ::s], pts, mask, grads,
                                    cl.stack7, il, tc.student_t_nu, s2i, s2x, strata,
                                    tc.use_geometric, tc.gate_sigmas, occlusion_gate=True)
@@ -301,10 +319,14 @@ def test_stratified_plain_matches_jax(qvga_pair, level):
         Hk, bk, nk, Gk, ek = (a.numpy() for a in got)
         np.testing.assert_array_equal(nk, nr)
         for a, r, what in ((Hk, Hr, "H"), (Gk, Gr, "G"), (bk, br, "b")):
-            scale = np.abs(r).reshape(K, -1).max(1).reshape((K,) + (1,) * (r.ndim - 1))
+            scale = np.abs(r).reshape(k, -1).max(1).reshape((k,) + (1,) * (r.ndim - 1))
             assert np.all(np.abs(a - r) <= 2e-4 * np.abs(r) + 1e-5 * scale), what
         np.testing.assert_allclose(ek, er, rtol=1e-4)
-    assert (nr > 0).sum() >= 2 and nr.sum() > 500  # several populated strata
+    assert nr.sum() > 500
+    if strata_from == "scrambled":  # every stratum but the empty one holds pixels
+        assert nr[2] == 0 and (nr > 0).sum() == k - 1
+    elif k > 1:
+        assert (nr > 0).sum() >= 2  # several populated strata
 
 
 # ---------------------------------------------------------------------------

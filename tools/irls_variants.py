@@ -21,9 +21,20 @@ pixel's own index and summed: loads and stores only), without the gather
 (the arithmetic kept, the current planes read at the pixel's own index
 instead of the four projected corners); and, in the one-launch design, the
 IC exact step with every block summing every row after the barrier in
-place of the last block publishing the sums. The script reads which
+place of the last block publishing the sums. Variants of the consensus
+vote's stratified kernel (timed at the vote's L2 and L1 layouts): without
+the per-pixel work, without the tail; in the earlier (blocks per stratum,
+K) grid design also with a grid of K = 1; in the one-pass cluster design
+also without the transpose sums, as one cluster of 512 or 1024 threads a
+block, as 3 clusters, as 10 clusters of 128 threads a block and as 10
+clusters of 8 blocks. The script reads which
 design its sources hold: run from a checkout of an earlier commit (copy
-this file into its ``tools/``), it times that commit's design.
+this file and ``chip_smoke.py`` into it), it times that commit's design.
+
+    python3 tools/irls_variants.py --stratified
+
+times the stratified kernel's variants alone. Every row gives the
+profiler's device time and the CUDA events' (calls back to back).
 """
 
 from __future__ import annotations
@@ -177,9 +188,71 @@ ONE_LAUNCH |= {
 }
 
 
+# --- the consensus vote's stratified kernel -------------------------------
+# The earlier (blocks per stratum, K) grid: every block reads the mask and
+# inverse depth of its share and does the per-pixel work for its own
+# stratum; the last block sums K x 50 columns over the rows.
+STRATIFIED_GRID_MARK = ("esm_stratified.cu", "const dim3 grid(bx, sp.k);")
+STRATIFIED_GRID = {
+    "stratified without the per-pixel work": [
+        ("esm_stratified.cu", "    if (m == 0.f || stratum_of(xi[i], sp) != k) continue;\n",
+         "    if (m == 0.f || stratum_of(xi[i], sp) != k) continue;\n"
+         "    if (p.n > 0) {\n      acc[0] += m;\n      continue;\n    }\n")],
+    "stratified without the tail": [
+        ("esm_stratified.cu", "  if (!irls::last_to_arrive(counter, kSums)) return;\n",
+         "  if (p.n > 0) return;\n  if (!irls::last_to_arrive(counter, kSums)) return;\n")],
+    "stratified K = 1 grid": [
+        ("esm_stratified.cu", "const dim3 grid(bx, sp.k);", "const dim3 grid(bx, 1);")],
+}
+# One pass over the template for all strata, the blocks of a cluster summed
+# through distributed shared memory.
+STRATIFIED_CLUSTER = {
+    "stratified without the per-pixel work": [
+        ("esm_stratified.cu", "    if (todo == 0u) continue;\n",
+         "    if (todo == 0u) continue;\n"
+         "    if (p.n > 0) {\n"
+         "      if (lane == 0) wrow[0] += static_cast<float>(__popc(todo));\n"
+         "      continue;\n"
+         "    }\n")],
+    "stratified without the transpose sums": [
+        ("esm_stratified.cu",
+         "__device__ __forceinline__ float transpose_sum(float (&v)[32], int lane) {\n",
+         "__device__ __forceinline__ float transpose_sum(float (&v)[32], int lane) {\n"
+         "  if (lane >= 0) {\n    float s = 0.f;\n"
+         "    for (int j = 0; j < 32; ++j) s += v[j];\n    return s;\n  }\n")],
+    "stratified without the tail": [
+        ("esm_stratified.cu", "  const unsigned int rank = cluster.block_rank();\n",
+         "  if (p.n > 0) return;\n  const unsigned int rank = cluster.block_rank();\n")],
+    "stratified 512 threads, 3 pixels a thread (one cluster)": [
+        ("esm_stratified.cu", "constexpr int kBlockThreads = 256;",
+         "constexpr int kBlockThreads = 512;"),
+        ("esm_stratified.cu", "constexpr int kPixelsPerThread = 1;",
+         "constexpr int kPixelsPerThread = 3;")],
+    "stratified 1024 threads, 2 pixels a thread (one cluster)": [
+        ("esm_stratified.cu", "constexpr int kBlockThreads = 256;",
+         "constexpr int kBlockThreads = 1024;"),
+        ("esm_stratified.cu", "constexpr int kPixelsPerThread = 1;",
+         "constexpr int kPixelsPerThread = 2;")],
+    "stratified 256 threads, 2 pixels a thread (3 clusters)": [
+        ("esm_stratified.cu", "constexpr int kPixelsPerThread = 1;",
+         "constexpr int kPixelsPerThread = 2;")],
+    "stratified 128 threads (10 clusters)": [
+        ("esm_stratified.cu", "constexpr int kBlockThreads = 256;",
+         "constexpr int kBlockThreads = 128;")],
+    "stratified 8 blocks a cluster (10 clusters)": [
+        ("esm_stratified.cu", "constexpr int kClusterBlocks = 16;",
+         "constexpr int kClusterBlocks = 8;")],
+}
+
+
 def _design() -> dict:
     f, mark = TWO_LAUNCH_MARK
     return TWO_LAUNCH if mark in (SRC / f).read_text() else ONE_LAUNCH
+
+
+def _stratified_design() -> dict:
+    f, mark = STRATIFIED_GRID_MARK
+    return STRATIFIED_GRID if mark in (SRC / f).read_text() else STRATIFIED_CLUSTER
 
 
 def _variant_dir(name: str) -> Path:
@@ -219,25 +292,30 @@ def build_all(variants: dict) -> dict:
 
 
 def main() -> int:
+    stratified_only = "--stratified" in sys.argv[1:]
     if not cs.torch.cuda.is_available():
         print("irls_variants: needs a CUDA card", file=sys.stderr)
         return 2
     cs.phase_device()
     OUT.mkdir(parents=True, exist_ok=True)
-    variants = {"shipped": [], **_design()}
+    variants = {"shipped": [], **({} if stratified_only else _design()), **_stratified_design()}
     libs = build_all(variants)
     _build._LIBRARY = libs["shipped"]
-    _, _, esm = cs.phase_kernels(cs.slice_config())
-    _, _, ic = cs.phase_ic_kernels()
-    timing = esm + ic
-    print("[variants] device us per call (profiler, 50 calls): "
-          + " | ".join(f"{key} {level}" for key, level, *_ in timing))
+    timing = []
+    if not stratified_only:
+        timing += cs.phase_kernels(cs.slice_config())[2] + cs.phase_ic_kernels()[2]
+    timing += cs.phase_stratified()[2]
+    print("[variants] device us per call, profiler (50 calls) / CUDA events (50 calls back to "
+          "back): " + " | ".join(f"{key} {level}" for key, level, *_ in timing))
     for rnd in range(2):
         for name, lib in libs.items():
             _build._LIBRARY = lib
-            row = [cs._device_ms(lambda: kernel(args), reps=50) * 1e3
-                   for _, _, kernel, _, args, *_ in timing]
-            print(f"[variants] round {rnd} {name:42s} " + " ".join(f"{x:7.2f}" for x in row))
+            row = []
+            for _, _, kernel, _, args, *_ in timing:
+                prof = cs._device_ms(lambda: kernel(args), reps=50) * 1e3
+                ev = cs._event_device_ms(lambda: kernel(args)) * 1e3
+                row.append(f"{prof:6.2f}/{ev:6.2f}")
+            print(f"[variants] round {rnd} {name:42s} " + " ".join(row))
     return 0
 
 
