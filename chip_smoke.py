@@ -84,15 +84,38 @@ otherwise. Phases, each printing its own lines:
    true, a new keyframe within 40 mm of ground truth, an external loop
    edge) and tracks on.
 
-The second-to-last line is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Imports no JAX and no OpenCV: the scene is
-rendered here with numpy and scipy.
+10. [gauntlet]: the port's gauntlet runner (``eval/gauntlet.py``, the
+   port's numpy renderer) on three rows of the reference's battery at VGA,
+   60 frames, seed 3, ``SlamConfig()`` as shipped (back end on):
+   kinect_sensor (motion blur, median, dilation and speckle in the
+   renderer), depth_holes (the cubic blob) and mover_then_revisit (90
+   frames: the back end must reclaim a mover episode through the pose
+   graph). Each row must fall inside the reference's recorded envelope
+   (``VGA_RECORDED_MM``) with no loss, finite poses, no exception in the
+   thread and exact launch counts; the revisit row must end below 0.6 x the
+   odometry's ATE (the same row with the back end off, which its pre-finish
+   ATE must equal or undercut) with at least one loop closure. Prints each
+   row and the renderer's host ms per frame.
+11. [cli]: ``python -m rgbid_tpu_torch --synthetic 40 --max-frames 16
+   --eval`` in-process on the card, default configuration: 16 frames, no
+   loss, ATE under 10 mm, the trajectory, the map and the JSONL log (a
+   header, 16 frame records, a result).
+
+Phases 4 and 8-11 each drive the main path with the launch counts set to 0
+just before and read just after. The second-to-last line is
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Imports
+no JAX and no OpenCV: phases 4-9 render their scenes here with numpy and
+scipy, phases 10 and 11 with the port's renderer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -103,6 +126,7 @@ import torch
 from scipy import ndimage
 
 import rgbid_tpu_torch as port
+from rgbid_tpu_torch import cli
 from rgbid_tpu_torch.core import se3
 from rgbid_tpu_torch.core.camera import TUM_FR1, Intrinsics
 from rgbid_tpu_torch.backend import orb
@@ -110,7 +134,8 @@ from rgbid_tpu_torch.backend.features import extract_orb
 from rgbid_tpu_torch.backend.loop_closure import loop_edge
 from rgbid_tpu_torch.backend.pose_graph import PoseGraph
 from rgbid_tpu_torch.backend.relocalization import SCORER_DAMPING, RelocScorer, mini_pyramid
-from rgbid_tpu_torch.eval import absolute_trajectory_error
+from rgbid_tpu_torch.datasets import synthetic
+from rgbid_tpu_torch.eval import absolute_trajectory_error, gauntlet
 from rgbid_tpu_torch.mapping import fusion
 from rgbid_tpu_torch.ops import _build, gauss_newton, kernels
 from rgbid_tpu_torch.ops.gauss_newton import ic_update
@@ -151,6 +176,32 @@ LOOP_PG_MARGIN_M = 1e-3
 LOOP_EDGE_TOL_M = 5e-3
 RELOC_FRAMES = 34
 RELOC_POSE_TOL_M = 40e-3
+# The reference's recorded VGA gauntlet table: tests/test_gauntlet.py,
+# _VGA_RECORDED_MM (60 frames a row, seed 3, back end on; recorded on a
+# TPU). Only the ATE envelopes carry over: (recorded ATE mm, factor), bound
+# max(recorded x factor, 1.5 mm). The revisit row must also reclaim: post
+# below GAUNTLET_RECLAIM x the odometry's ATE (tests/test_gauntlet.py holds
+# it to the pre-finish ATE; phase_gauntlet says why the smoke does not).
+VGA_RECORDED_MM = {
+    "easy_orbit": (0.80, 1.8),
+    "handheld_jitter": (2.62, 1.8),
+    "large_motion": (3.33, 2.0),
+    "exposure_drift": (3.64, 1.8),
+    "depth_holes": (2.38, 1.8),
+    "moving_occluder_mid": (4.96, 1.8),
+    "moving_occluder_near": (9.44, 3.0),
+    "moving_occluder_near_walking": (27.9, 2.0),
+    "mover_then_revisit": (18.1, 3.0),
+    "two_movers": (19.7, 3.0),
+    "kinect_sensor": (1.63, 2.5),
+    "fr3_walking_standin": (4.98, 3.0),
+    "combined_endurance": (2.39, 1.8),
+}
+GAUNTLET_RECLAIM = 0.6
+GAUNTLET_ROWS = ("kinect_sensor", "depth_holes", "mover_then_revisit")
+GAUNTLET_FRAMES = 60
+GAUNTLET_SEED = 3
+CLI_MAX_ATE_M = 0.01
 # Scorer on the card against the scorer on the CPU: the pose of a pair that
 # both accept. One IRLS step agrees with its plain version within 1e-6, and
 # 36 chained steps on a converging pair contract that difference (measured
@@ -1932,6 +1983,153 @@ def phase_reloc():
     return ok, dict(launches, scorer_launches=lc.scorer.launches)
 
 
+def _gauntlet_row(name, seq_kwargs, cfg_over, frames, intr, base_over, cache):
+    """One gauntlet row through the port's runner on the card, the launch
+    counts set to 0 just before and read just after. Returns (row, system,
+    launches, whether they are the counts the run must make)."""
+    over = {k: v for k, v in {**base_over, **cfg_over}.items() if not k.startswith("_")}
+    key = port.SlamConfig().override(**over).config_hash()
+    slam = cache.get(key)
+    counts0 = slam.tracker_counts if slam is not None else {"rerun_iters": 0, "rescues": 0}
+    torch.cuda.synchronize()
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
+    row = gauntlet.run_scenario(name, seq_kwargs, cfg_over, frames, intr, base_over, cache,
+                                seed=GAUNTLET_SEED, device="cuda")
+    torch.cuda.synchronize()
+    launches = {k: getattr(wrapper, attr) for k, (wrapper, attr) in COUNTERS.items()}
+    slam = cache[key]
+    counts = {k: v - counts0[k] for k, v in slam.tracker_counts.items()}
+    expected = expected_launches(slam.config.tracking, row["frames"] - 1, counts["rerun_iters"],
+                                 counts["rescues"])
+    fused = sum(rec.get("n_fused", 0) > 0 for rec in slam.stats)
+    exact = all(launches[k] == v for k, v in expected.items()) and launches["fusion"] == fused
+    return row, slam, launches, exact
+
+
+def phase_gauntlet(w: int = 640, h: int = 480, frames: int = GAUNTLET_FRAMES):
+    """Three gauntlet rows through the port's runner (the module docstring,
+    item 10). Returns (ok, the per-frame launch counts summed over the runs,
+    the scorer's launches).
+
+    The revisit row's reclaim: its pre-finish ATE is taken after the last
+    frame and before ``finish()``, so it is the odometry's ATE only if the
+    thread has not yet published a pose-graph update by then; when the loop
+    is closed a few frames before the end (at keyframe 6 of 8), whether it
+    has is a race between the thread and the front end (on the CPU the
+    update lands 4 frames before the end). The front end never reads the
+    back end's poses, so the same row with the back end off gives the
+    odometry's ATE exactly: the reclaim is held to that, and the pre-finish
+    ATE must equal it or be below it (an update that landed early)."""
+    intr = Intrinsics(fx=0.808 * w, fy=1.076 * h, cx=w / 2 - 0.5, cy=h / 2 - 0.5, width=w,
+                      height=h)
+    cache, ok = {}, True
+    total, scorer_launches = dict.fromkeys(COUNTERS, 0), 0
+    rendered, render_s = {}, {}
+    generate = synthetic.generate_sequence
+
+    def timed_generate(*args, **kwargs):
+        # One render per sequence: the revisit row's back-end-off run reuses it.
+        key = json.dumps([args, kwargs], default=repr, sort_keys=True)
+        if key not in rendered:
+            t0 = time.perf_counter()
+            rendered[key] = generate(*args, **kwargs)
+            render_s[key] = time.perf_counter() - t0
+        return rendered[key]
+
+    synthetic.generate_sequence = timed_generate
+    try:
+        for name, seq_kwargs, cfg_over in gauntlet.scenarios(frames):
+            if name not in GAUNTLET_ROWS:
+                continue
+            n_keys = len(render_s)
+            row, slam, launches, exact = _gauntlet_row(name, seq_kwargs, cfg_over, frames, intr,
+                                                       {}, cache)
+            secs = list(render_s.values())[n_keys] if len(render_s) > n_keys else float("nan")
+            be = slam.backend
+            recorded, factor = VGA_RECORDED_MM[name]
+            bound = max(recorded * factor, 1.5)
+            checks = {
+                "envelope": row["ate_rmse_mm"] <= bound,
+                "lost": row["lost"] == 0,
+                "finite": all(np.isfinite(T).all() for T in slam.poses()),
+                "thread": be.errors == 0 and not be.alive,
+                "launches": exact,
+            }
+            runs = [(launches, be.loop_closer.scorer.launches)]
+            text = ""
+            if "ate_pre_finish_mm" in row:
+                off, _, off_launches, off_exact = _gauntlet_row(
+                    name, seq_kwargs, cfg_over, frames, intr, {"backend.enabled": False}, cache)
+                runs.append((off_launches, 0))
+                odo, pre, post = off["ate_rmse_mm"], row["ate_pre_finish_mm"], row["ate_rmse_mm"]
+                checks["reclaim"] = (post < GAUNTLET_RECLAIM * odo and row["loop_closures"] >= 1
+                                     and pre <= odo + 1e-3 and off_exact)
+                text = (f", pre-finish {pre:.3f} mm, the same row with the back end off "
+                        f"{odo:.3f} mm (post/pre {post / pre:.3f}, post/off {post / odo:.3f}, "
+                        f"bound {GAUNTLET_RECLAIM}; "
+                        + ("the thread published before the last frame" if pre < odo - 1e-3
+                           else "no update before the last frame") + ")")
+            good = all(checks.values())
+            ok &= good
+            for run, scorer in runs:
+                for k in COUNTERS:
+                    total[k] += run[k]
+                scorer_launches += scorer
+            step_ms = np.array([rec["ms"] for rec in slam.stats[1:]])
+            print(f"[gauntlet] {json.dumps(row)}")
+            print(f"[gauntlet] {name}: ATE {row['ate_rmse_mm']:.3f} mm (recorded "
+                  f"{recorded} on a TPU, bound {bound:.2f}){text}; renderer "
+                  f"{secs / row['frames'] * 1e3:.1f} host ms/frame over {row['frames']} frames; "
+                  f"process_frame ms median {np.median(step_ms):.2f} (max {step_ms.max():.2f}), "
+                  f"the row's window {row['ms_per_frame']} ms/frame (with finish() and the "
+                  f"ATE); loop closures {row['loop_closures']}, thread errors {be.errors}; "
+                  f"launches {launches} (exact: {exact}), scorer "
+                  f"{be.loop_closer.scorer.launches}; checks {checks} {'OK' if good else 'FAIL'}")
+    finally:
+        synthetic.generate_sequence = generate
+    print(f"[gauntlet] {'OK' if ok else 'FAIL'}")
+    return ok, total, scorer_launches
+
+
+def phase_cli():
+    """The command line in-process on the card (the module docstring, item
+    11). Returns (ok, the per-frame launch counts)."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--synthetic", "40", "--max-frames", "16", "--out-dir", out_dir, "--eval",
+                       "--quiet"])
+    torch.cuda.synchronize()
+    launches = {k: getattr(wrapper, attr) for k, (wrapper, attr) in COUNTERS.items()}
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log = os.path.join(out_dir, "frames.jsonl")
+    recs = [json.loads(line) for line in open(log)] if os.path.exists(log) else []
+    checks = {
+        "rc": rc == 0,
+        "frames": result["frames"] == 16,
+        "lost": result["lost_frames"] == 0,
+        "ate": result["ate"]["rmse"] < CLI_MAX_ATE_M,
+        "files": all(os.path.exists(os.path.join(out_dir, f)) for f in ("trajectory.txt", "map.ply")),
+        "log": bool(recs) and recs[0]["type"] == "run_header" and "config_hash" in recs[0]
+        and sum(r["type"] == "frame" for r in recs) == 16 and recs[-1]["type"] == "result",
+        "launches": launches["esm_normal_eq"] > 0 and launches["esm_stratified"] > 0
+        and launches["fusion"] > 0,
+    }
+    ok = all(checks.values())
+    print(f"[cli] --synthetic 40 --max-frames 16 --eval, default config on the card: frames "
+          f"{result['frames']}, keyframes {result['keyframes']}, loop closures "
+          f"{result['loop_closures']}, lost {result['lost_frames']}, ATE "
+          f"{result['ate']['rmse'] * 1e3:.3f} mm (bound {CLI_MAX_ATE_M * 1e3:.0f}), wall "
+          f"{result['wall_s']} s, {len(recs)} log records; launches {launches}; checks {checks}")
+    print(f"[cli] {'OK' if ok else 'FAIL'}")
+    return ok, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1970,14 +2168,21 @@ def main() -> int:
     for run in (backend_run, reloc_run):
         for k in COUNTERS:
             total[k] += run[k]
+    # The port's renderer: gauntlet rows and the command line.
+    g_ok, g_launches, g_scorer = phase_gauntlet()
+    c_ok, c_launches = phase_cli()
+    m_ok &= g_ok and c_ok
+    for run in (g_launches, c_launches):
+        for k in COUNTERS:
+            total[k] += run[k]
     print(f"[main] ms/frame median in this call: " + ", ".join(
         f"{k} {v:.2f}" for k, v in median.items()) + f"; IC exact - IC lagged "
           f"{median['ic exact'] - median['ic lagged']:+.2f}, default - consensus off "
           f"{median['default'] - median['esm consensus off']:+.2f}")
     phase_times(records, timing)
     phase_profile(default_config())
-    # Counts summed over the six main-path runs, the counted back-end-on run
-    # and the relocalization run. The scale step runs on
+    # Counts summed over the six main-path runs, the counted back-end-on run,
+    # the relocalization run, the gauntlet rows and the command line. The scale step runs on
     # the main path as phases of the IC exact launches: its ``launches`` is
     # that count, and its standalone launches (0 on the main path) stand
     # beside it.
@@ -1988,9 +2193,10 @@ def main() -> int:
     # The ESM kernel's launches on the loop-verification path, counted by
     # the scorer (they never enter the per-frame count), stand beside the
     # per-frame launches and inside the total: close_loop's pair, the
-    # back-end thread's candidates and the relocalization attempts.
+    # back-end threads' candidates (the loop run's and the gauntlet rows')
+    # and the relocalization attempts.
     scorer_launches = (loop_out["launches"] + backend_run["scorer_launches"]
-                       + reloc_run["scorer_launches"])
+                       + reloc_run["scorer_launches"] + g_scorer)
     records["esm"]["scorer_launches"] = scorer_launches
     records["esm"]["launches"] += scorer_launches
     records["esm"].update(scorer_ms, loop_score_ms=loop_out["score_ms"],

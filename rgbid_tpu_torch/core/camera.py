@@ -20,6 +20,8 @@ class Intrinsics(NamedTuple):
 
 # Default TUM fr1-style calibration (freiburg1 sequences).
 TUM_FR1 = Intrinsics(fx=517.3, fy=516.5, cx=318.6, cy=255.3, width=640, height=480)
+# The synthetic renderer's and the command line's default camera (VGA).
+DEFAULT = Intrinsics(fx=525.0, fy=525.0, cx=319.5, cy=239.5, width=640, height=480)
 
 
 def level_shape(height: int, width: int, level: int) -> tuple[int, int]:

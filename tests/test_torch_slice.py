@@ -181,10 +181,12 @@ def test_system_finish_map_and_trajectory(both_systems, tmp_path):
 
 
 def test_port_imports_no_jax_or_cv2():
-    """A fresh process imports the port, tracks a frame on the CPU and
-    imports chip_smoke without loading jax or cv2, and without loading any
-    module from a file of the JAX package (``rgbid_tpu/``); the port's
-    config is the JAX package's (same hash)."""
+    """A fresh process imports the port, tracks a frame on the CPU,
+    imports chip_smoke and every module of the port (the renderer, the
+    gauntlet, the seed sweep, the vocabulary builder, the utilities and the
+    command line) and renders a short sequence without loading jax or cv2,
+    and without loading any module from a file of the JAX package
+    (``rgbid_tpu/``); the port's config is the JAX package's (same hash)."""
     code = (
         "import sys, pathlib, numpy as np\n"
         "import rgbid_tpu_torch as port, chip_smoke\n"
@@ -208,6 +210,13 @@ def test_port_imports_no_jax_or_cv2():
         "sc = RelocScorer(intr, chip_smoke.slice_config(), 'cpu')\n"
         "res = sc.score_pairs([kfs[0].reloc_planes], [kfs[0].reloc_planes])\n"
         "assert np.isfinite(res.T).all() and sc.host_reads == 1\n"
+        "import rgbid_tpu_torch.datasets._cv, rgbid_tpu_torch.eval.gauntlet\n"
+        "import rgbid_tpu_torch.eval.seed_sweep, rgbid_tpu_torch.backend.build_vocab\n"
+        "import rgbid_tpu_torch.utils, rgbid_tpu_torch.cli\n"
+        "from rgbid_tpu_torch.datasets import synthetic\n"
+        "seq = synthetic.generate_sequence(n_frames=2, intr=intr, kinect_artifacts=1.0,\n"
+        "                                  depth_hole_frac=0.1)\n"
+        "assert seq.rgb[1].shape == (48, 64, 3) and (seq.depth[1] > 0).mean() > 0.5\n"
         "ref = pathlib.Path('rgbid_tpu').resolve()\n"
         "files = [getattr(m, '__file__', None) for m in list(sys.modules.values())]\n"
         "ours = [f for f in files if f and pathlib.Path(f).resolve().is_relative_to(ref)]\n"
