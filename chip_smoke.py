@@ -19,7 +19,17 @@ otherwise. Phases, each printing its own lines:
    odd camera: the vote's L2 and L1 layouts, K 1 and 16, strata scrambled
    pixel by pixel with one stratum empty, and L0, where some threads take
    two pixels; analyze/decide on both sums where K is 6) are
-   held to their plain versions and rerun;
+   held to their plain versions and rerun. The ESM kernel again with
+   bfloat16 planes in every mix the tracker uses (``BF16_MIXES``: the
+   IRLS loop's, the vote's and the rescue evidence's under
+   ``plane_dtype`` "bf16", and the two ablation splits') at every level's
+   layout and at the odd camera's L1 and L0, and the stratified kernel at
+   L2 and L1 in the vote's mixes, each against its plain version on the
+   same bf16 tensors and rerun; then the early exit in the ESM step, the
+   IC lagged step and the IC exact step at sigma_iters 2 and 3 (whose grid
+   barriers a block leaving alone would deadlock): a previous step just
+   under the tolerance leaves the output equal to it bit for bit and the
+   workspace as found, one just over runs;
 4. main paths: SlamSystem over synthetic VGA sequences with known ground
    truth, five times, and a sixth over a closed loop (item 6): the ESM configuration with the consensus off, the
    default configuration (``SlamConfig()``, back end off: ESM with the
@@ -38,10 +48,13 @@ otherwise. Phases, each printing its own lines:
    kernel durations, and CUDA events around calls run back to back behind
    a spin), beside the least time the card could take (bytes over
    3.35 TB/s, or operations over 67 TFLOP/s f32); the ESM kernel at every
-   pyramid level's layout, the stratified reduction at L2 and L1, the IC
-   step lagged and exact. Then torch.profiler over tracked frames of one
-   default-configuration run: device ops per frame (fused and not) and the
-   largest of them. Profiling runs last, because it slows later launches.
+   pyramid level's layout (and with bf16 planes), the stratified reduction
+   at L2 and L1 (f32 and the vote's bf16 mix), the IC step lagged and
+   exact, and a skipped (early-exit) ESM launch. Then torch.profiler over
+   tracked frames of a default-configuration run and of a preset run:
+   device ops per frame (fused and not) and the largest of them, and the
+   kernels each upload codec's decode launches. Profiling runs last,
+   because it slows later launches.
 6. the back end's own functions on the card. The ESM step at the
    six layouts ``RelocScorer`` gives it (VGA and 641x481 with ``reloc_level``
    2), against its plain version, in phase 3 and timed in phase 5. The
@@ -101,8 +114,21 @@ otherwise. Phases, each printing its own lines:
    loss, ATE under 10 mm, the trajectory, the map and the JSONL log (a
    header, 16 frame records, a result).
 
-Phases 4 and 8-11 each drive the main path with the launch counts set to 0
-just before and read just after. The second-to-last line is
+12. [preset]: ``SlamConfig.preset("real-v5e")`` (the u12 codec, the early
+   exit, bf16 planes) on the rigid and mover sequences and, back end on,
+   on the loop sequence; u12 and u16h alone on the rigid sequence; each
+   beside the same run without the knobs in this call: ATE bounds, no loss,
+   exact launch counts (the host enqueues the whole budget), the device's
+   count of IRLS iterations run per level (at most those enqueued), reads =
+   syncs with the step's fixed reads per frame those of the run without
+   the knobs, and run-to-run bit-identity. Then the gauntlet's
+   kinect_sensor at VGA under the preset's flips. [knobs]: ms/frame of
+   SlamConfig(), each knob alone and the preset, in alternating rounds.
+   [codecs]: bytes, pack_frame's host ms, the upload's host ms and the
+   host-to-device copy's device ms per codec.
+
+Phases 4, 8-11 and [preset] each drive the main path with the launch
+counts set to 0 just before and read just after. The second-to-last line is
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Imports
 no JAX and no OpenCV: phases 4-9 render their scenes here with numpy and
 scipy, phases 10 and 11 with the port's renderer.
@@ -141,7 +167,8 @@ from rgbid_tpu_torch.ops import _build, gauss_newton, kernels
 from rgbid_tpu_torch.ops.gauss_newton import ic_update
 from rgbid_tpu_torch.reference_cpu import odometry
 from rgbid_tpu_torch.tracking import consensus
-from rgbid_tpu_torch.tracking.step import ProcessFrame, frame_pyramid, gray_from_rgb, pack_frame
+from rgbid_tpu_torch.tracking.step import ProcessFrame, decode_frame, frame_pyramid, gray_from_rgb
+from rgbid_tpu_torch.tracking.step import pack_frame
 from rgbid_tpu_torch.tracking.tracker import template_level
 
 N_FRAMES = 36
@@ -872,6 +899,35 @@ def _stratified_plain(a):
     return gauss_newton.stratified_sums(*a[:10], strata, *a[12:])
 
 
+def _stratified_compare(a, lvl: int, tc, intr_l):
+    """The stratified kernel on ``a`` (twice) against its plain version:
+    per stratum H, G and b within _scaled_err <= 1, n exact, the error
+    within 1e-4 relative, the rerun bit-identical, and at K 6 analyze +
+    decide giving the same flags on both sums. Returns (good, max |d|,
+    max share of tolerance, text, kernel sums, plain sums) (host arrays)."""
+    K = len(a[11]) - 1
+    k, k2, p = kernels.esm_stratified(*a), kernels.esm_stratified(*a), _stratified_plain(a)
+    torch.cuda.synchronize()
+    kh, ph = k.cpu().numpy(), p.cpu().numpy()
+    ku, pu = gauss_newton.unpack_stratified(k), gauss_newton.unpack_stratified(p)
+    e_abs, scaled = 0.0, 0.0
+    for i in (0, 1, 3):  # H, b, G: per stratum
+        for j in range(K):
+            ea, es = _scaled_err(ku[i][j], pu[i][j])
+            e_abs, scaled = max(e_abs, ea), max(scaled, es)
+    n_exact = bool(torch.equal(ku[2], pu[2]))
+    err_rel = float(((ku[4] - pu[4]).abs() / pu[4].abs().clamp(min=1e-30)).max())
+    same = bool(torch.equal(k, k2))
+    good = scaled <= 1.0 and n_exact and err_rel <= 1e-4 and same
+    text = (f"n per stratum {ph[:, 27].astype(int).tolist()} H/b/G {scaled:.2f} of tol, n exact "
+            f"{n_exact}, err rel {err_rel:.1e} (tol 1e-4), rerun bit-identical {same}")
+    if K == 6:
+        flags = np.array_equal(_verdicts(kh, lvl, tc, intr_l), _verdicts(ph, lvl, tc, intr_l))
+        good &= flags
+        text += f", analyze/decide flags equal {flags}"
+    return good, e_abs, scaled, text, kh, ph
+
+
 def _verdicts(sums, level: int, tc, intr_l):
     """analyze + decide on one vote's (K, 50) host sums, under a cold and a
     ripe history: the flags the tracker would act on."""
@@ -949,36 +1005,16 @@ def phase_stratified():
                                                    10 * lvl + K, K == 16)).cuda()
             a = (T, kl.intensity, pts, kl.mask, kl.jac, cur[lvl].stack7, step.intrs[lvl],
                  tc.student_t_nu, s2i, s2x, xi, edges, tc.use_geometric, tc.gate_sigmas, True)
-            k, k2, p = kernels.esm_stratified(*a), kernels.esm_stratified(*a), _stratified_plain(a)
-            torch.cuda.synchronize()
-            kh, ph = k.cpu().numpy(), p.cpu().numpy()
-            ku, pu = gauss_newton.unpack_stratified(k), gauss_newton.unpack_stratified(p)
-            scaled = 0.0
-            for i in (0, 1, 3):  # H, b, G: per stratum
-                for j in range(K):
-                    ea, es = _scaled_err(ku[i][j], pu[i][j])
-                    e_abs, scaled = max(e_abs, ea), max(scaled, es)
-            e_scaled = max(e_scaled, scaled)
-            n_exact = bool(torch.equal(ku[2], pu[2]))
-            err_rel = float(((ku[4] - pu[4]).abs() / pu[4].abs().clamp(min=1e-30)).max())
-            same = bool(torch.equal(k, k2))
-            good = scaled <= 1.0 and n_exact and err_rel <= 1e-4 and same
-            extra = ""
-            if K == 6:
-                flags = np.array_equal(_verdicts(kh, lvl, tc, step.intrs[lvl]),
-                                       _verdicts(ph, lvl, tc, step.intrs[lvl]))
-                good &= flags
-                extra += f", analyze/decide flags equal {flags}"
+            good, ea, scaled, text, kh, ph = _stratified_compare(a, lvl, tc, step.intrs[lvl])
+            e_abs, e_scaled = max(e_abs, ea), max(e_scaled, scaled)
             if strata_from == "scrambled":
                 empty = float(kh[EMPTY_STRATUM, 27]) == 0.0 and int((ph[:, 27] > 0).sum()) == K - 1
                 good &= empty
-                extra += f", stratum {EMPTY_STRATUM} empty {empty}"
+                text += f", stratum {EMPTY_STRATUM} empty {empty}"
             ok &= good
-            n_k = ph[:, 27].astype(int).tolist()
             print(f"[kernels] esm_stratified {cam} L{lvl} K {K} {strata_from}: template "
-                  f"{tuple(kl.mask.shape)} stack {tuple(cur[lvl].stack7.shape)} n per stratum "
-                  f"{n_k} H/b/G {scaled:.2f} of tol, n exact {n_exact}, err rel {err_rel:.1e} "
-                  f"(tol 1e-4), rerun bit-identical {same}{extra} {'OK' if good else 'FAIL'}")
+                  f"{tuple(kl.mask.shape)} stack {tuple(cur[lvl].stack7.shape)} {text} "
+                  f"{'OK' if good else 'FAIL'}")
             if cam == "VGA" and K == 6 and strata_from == "depth" and lvl in (2, 1):
                 timing.append(("esm_stratified", f"L{lvl}", lambda a: kernels.esm_stratified(*a),
                                _stratified_plain, a,
@@ -1158,6 +1194,211 @@ def phase_ic_kernels():
     return ok, records, timing
 
 
+# The plane-type mixes of the ESM kernel: (label, template intensity,
+# points, current stack bfloat16), each as the tracker runs it under
+# TrackingConfig.plane_dtype: "bf16" in the IRLS loop, then at the vote and
+# the rescue's level-0 evidence (the float32 intensity with the bf16 points);
+# the two ablation splits likewise.
+BF16_MIXES = [
+    ("bf16 loop", True, True, True),
+    ("bf16 vote", False, True, True),
+    ("bf16-points loop", True, True, False),
+    ("bf16-points vote", False, True, False),
+    ("bf16-stack", False, False, True),
+]
+
+
+def _bf16_args(args, mix):
+    """ESM (or stratified) arguments with the planes of ``mix`` stored
+    bfloat16, rounded to nearest even as the tracker and the frame stack
+    store them."""
+    _, int_bf, pts_bf, stack_bf = mix
+    bf = torch.bfloat16
+    a = list(args)
+    if int_bf:
+        a[1] = a[1].to(bf)
+    if pts_bf:
+        a[2] = tuple(p.to(bf) for p in a[2])
+    if stack_bf:
+        a[5] = a[5].to(bf)
+    return tuple(a)
+
+
+def phase_bf16_kernels(records):
+    """The ESM kernel with bfloat16 planes against its plain chain on the
+    same bfloat16 tensors (``_esm_case``'s tolerances: the plain version
+    widens every load to float32 as the kernel does), in every mix of
+    BF16_MIXES, at every level's layout of the main path (VGA, the template
+    stride as configured) and at L1 and L0 of the odd 641x481 camera (a
+    plane's start is not 4-byte aligned there), each with a rerun
+    (bit-identical); then the stratified kernel at the vote's L2 and L1
+    layouts (K 6, VGA and odd) in the vote's mixes (float32 intensity).
+    Timed: "bf16 loop" at every level, the vote's mix at L2 and L1."""
+    cfg = default_config()
+    tc = cfg.tracking
+    strides = tuple(tc.template_stride) + (1,) * tc.levels
+    damping = tc.damping
+    s2i = torch.full((), 0.01, device="cuda")
+    s2x = torch.full((), 0.0025, device="cuda")
+    v2i = torch.full((), tc.init_sigma_int**2, device="cuda")
+    v2x = torch.full((), tc.init_sigma_xi**2, device="cuda")
+    rec, srec = records["esm"], records["esm_stratified"]
+    ok, timing = True, []
+
+    def step(a):
+        return kernels.esm_irls_step(*a, damping=damping)
+
+    for cam, intr, levels in (("VGA", TUM_FR1, range(tc.levels - 1, -1, -1)),
+                              ("odd", ODD_INTR, (1, 0))):
+        kf, cur, T, intrs = _frame_pair(intr, cfg)
+        for lvl in levels:
+            kl, pts = template_level(kf.levels[lvl], intrs[lvl], strides[lvl])
+            cap = tc.occ_gate_cap if lvl <= tc.occ_gate_cap_level else 0.0
+            base = (T, kl.intensity, pts, kl.mask, kl.jac, cur[lvl].stack7, intrs[lvl],
+                    tc.student_t_nu, s2i, s2x, tc.use_geometric, tc.gate_sigmas,
+                    tc.occlusion_gate, cap)
+            for mix in BF16_MIXES:
+                a = _bf16_args(base, mix)
+                good, e_abs, e_scaled, e_pose = _esm_case(f"{cam} L{lvl} {mix[0]}", a, damping)
+                x, y = step(a), step(a)
+                torch.cuda.synchronize()
+                same = all(torch.equal(p, q) for p, q in zip(_flat(x), _flat(y)))
+                if not same:
+                    print(f"[kernels] esm {cam} L{lvl} {mix[0]} rerun bit-identical False FAIL")
+                ok &= good and same
+                rec["max_abs_err"] = max(rec["max_abs_err"], e_abs)
+                rec["max_err_of_tol"] = max(rec["max_err_of_tol"], e_scaled)
+                rec["max_pose_err"] = max(rec["max_pose_err"], e_pose)
+                if cam == "VGA" and mix[0] == "bf16 loop":
+                    timing.append(("esm", f"bf16 L{lvl}", step, lambda a: _esm_chain(a, damping)[1:],
+                                   a, FLOPS_PER_PIXEL["esm"] * kl.mask.numel(),
+                                   f"template {tuple(kl.mask.shape)}, stack "
+                                   f"{tuple(cur[lvl].stack7.shape)}, intensity, points and stack "
+                                   f"bf16", a))
+            if lvl not in (2, 1):
+                continue
+            K = 6
+            edges = consensus.stratum_edges(1.0 / cfg.max_depth, 1.0 / cfg.min_depth, K)
+            vote = (T, kl.intensity, pts, kl.mask, kl.jac, cur[lvl].stack7, intrs[lvl],
+                    tc.student_t_nu, v2i, v2x, kl.xi, edges, tc.use_geometric, tc.gate_sigmas, True)
+            for mix in BF16_MIXES:
+                if mix[1]:  # the vote reads the float32 intensity
+                    continue
+                a = _bf16_args(vote, mix)
+                good, e_abs, scaled, text, _, _ = _stratified_compare(a, lvl, tc, intrs[lvl])
+                ok &= good
+                srec["max_abs_err"] = max(srec["max_abs_err"], e_abs)
+                srec["max_err_of_tol"] = max(srec["max_err_of_tol"], scaled)
+                print(f"[kernels] esm_stratified {cam} L{lvl} K {K} {mix[0]}: template "
+                      f"{tuple(kl.mask.shape)} stack {tuple(a[5].shape)} {a[5].dtype} {text} "
+                      f"{'OK' if good else 'FAIL'}")
+                if cam == "VGA" and mix[0] == "bf16 vote":
+                    timing.append(("esm_stratified", f"bf16 L{lvl}",
+                                   lambda a: kernels.esm_stratified(*a), _stratified_plain, a,
+                                   FLOPS_PER_PIXEL["esm_stratified"] * kl.mask.numel(),
+                                   f"template {tuple(kl.mask.shape)}, stack "
+                                   f"{tuple(a[5].shape)}, K {K}, points and stack bf16", a))
+    print(f"[kernels] bf16 planes: {'OK' if ok else 'FAIL'}")
+    return ok, timing
+
+
+EXIT_TOL = 1e-5  # SlamConfig.preset("real-v5e")'s tracking.early_exit_tol
+
+
+def _prev_with_delta(step, d0: float):
+    """A copy of ``step`` whose applied delta is (d0, 0, 0, 0, 0, 0): a
+    previous iteration as the early exit reads it (its step norm is d0)."""
+    out = step.out.clone()
+    delta = torch.zeros((6,), dtype=torch.float32)
+    delta[0] = float(d0)
+    out[64:70] = delta.to(out.device)
+    return kernels._irls_step(out)
+
+
+def _exit_case(label: str, launch, ws, slot: int, tol: float):
+    """One IRLS launch's early exit on the card: ``launch(prev, tol, slot)``
+    with a previous step whose norm is just under ``tol`` (a few float32
+    ulps) must leave ``out`` equal to that step's output bit for bit and
+    the workspace (partials, scale rows, counter words, run counts) as it
+    found it; just over ``tol`` it must run: the output equals a launch
+    without ``prev`` bit for bit, and the slot's run count grows by one; at
+    tol 0 ``prev`` is ignored. The plain version's test
+    (``kernels._cpu_skips``) takes the same decisions. Returns (good, the
+    skipping launch's previous step)."""
+    tol32 = np.float32(tol)
+    under = _prev_with_delta(launch(None, 0.0, -1), tol32 * np.float32(1.0 - 4e-7))
+    over = _prev_with_delta(launch(None, 0.0, -1), tol32 * np.float32(1.0 + 4e-7))
+    ref = launch(None, 0.0, -1)
+    torch.cuda.synchronize()
+    before = [t.clone() for t in (ws.partials, ws.sigma_rows, ws.counter, ws.runs)]
+    skipped = launch(under, tol, slot)
+    torch.cuda.synchronize()
+    after = [t.clone() for t in (ws.partials, ws.sigma_rows, ws.counter, ws.runs)]
+    copied = bool(torch.equal(skipped.out, under.out))
+    untouched = all(torch.equal(a, b) for a, b in zip(before, after))
+    ran = launch(over, tol, slot)
+    torch.cuda.synchronize()
+    runs = ws.runs.clone()
+    counted = int(runs[slot] - after[3][slot]) == 1
+    ran_eq = bool(torch.equal(ran.out, ref.out))
+    zero_tol = bool(torch.equal(launch(under, 0.0, -1).out, ref.out))
+    plain = kernels._cpu_skips(under, tol) and not kernels._cpu_skips(over, tol)
+    counter = ws.counter.cpu().tolist()
+    good = copied and untouched and counted and ran_eq and zero_tol and plain
+    print(f"[kernels] early exit {label}: under tol out = prev bit for bit {copied}, workspace "
+          f"untouched {untouched}; over tol runs (= a launch without prev bit for bit) {ran_eq}, "
+          f"counted {counted}; tol 0 ignores prev {zero_tol}; plain decisions equal {plain}; "
+          f"counter words {counter} {'OK' if good else 'FAIL'}")
+    return good, under
+
+
+def phase_early_exit():
+    """The early exit inside the IRLS kernels (``_exit_case``) at the
+    level-0 layouts of the main path: the ESM step (f32 and the bf16 loop
+    mix), the IC lagged step, and the IC exact step at sigma_iters 2 and 3,
+    whose cooperative launch has grid barriers that a block leaving early
+    would deadlock. Returns (ok, timing): a skipped ESM launch at L0 is
+    timed (its plain version is returning ``prev``: no work)."""
+    ok, timing = True, []
+    cfg = default_config()
+    tc = cfg.tracking
+    strides = tuple(tc.template_stride) + (1,) * tc.levels
+    s2i = torch.full((), 0.01, device="cuda")
+    s2x = torch.full((), 0.0025, device="cuda")
+    kf, cur, T, intrs = _frame_pair(TUM_FR1, cfg)
+    ws = kernels.workspace(T.device)
+    kl, pts = template_level(kf.levels[0], intrs[0], strides[0])
+    esm0 = (T, kl.intensity, pts, kl.mask, kl.jac, cur[0].stack7, intrs[0], tc.student_t_nu, s2i,
+            s2x, tc.use_geometric, tc.gate_sigmas, tc.occlusion_gate, tc.occ_gate_cap)
+    under = None
+    for label, a in (("esm L0", esm0), ("esm L0 bf16 loop", _bf16_args(esm0, BF16_MIXES[0]))):
+        good, prev = _exit_case(label, lambda p, t, sl, a=a: kernels.esm_irls_step(
+            *a, damping=tc.damping, prev=p, tol=t, slot=sl), ws, 0, EXIT_TOL)
+        ok &= good
+        under = under or prev
+    timing.append(("esm", "skipped L0",
+                   lambda a: kernels.esm_irls_step(*a, damping=tc.damping, prev=under,
+                                                   tol=EXIT_TOL),
+                   lambda a: gauss_newton.step_norm(under.delta), esm0, 13.0,
+                   "a skipped launch: reads the previous step's 6 floats, writes its 70",
+                   (under.delta,)))
+    icfg = ic_config("exact")
+    itc = icfg.tracking
+    kf, cur, T, intrs = _frame_pair(TUM_FR1, icfg)
+    kl, pts = template_level(kf.levels[0], intrs[0], strides[0])
+    cl = cur[0]
+    for label, mode, iters in (("ic L0 lagged", "lagged", 1), ("ic L0 exact sigma_iters 2",
+                                                                 "exact", 2),
+                               ("ic L0 exact sigma_iters 3", "exact", 3)):
+        a = (T, kl.intensity, pts, kl.mask, kl.jac, cl.intensity, cl.xi, cl.mask, intrs[0],
+             itc.student_t_nu, s2i, s2x, iters, itc.use_geometric, itc.gate_sigmas, mode)
+        good, _ = _exit_case(label, lambda p, t, sl, a=a: kernels.ic_irls_step(
+            *a, damping=itc.damping, prev=p, tol=t, slot=sl), ws, 1, EXIT_TOL)
+        ok &= good
+    print(f"[kernels] early exit: {'OK' if ok else 'FAIL'}")
+    return ok, timing
+
+
 def phase_times(records, timing):
     """Each kernel and its plain version, timed in turns (plain, kernel,
     kernel, plain) with CUDA events, the kernel's device time with CUDA
@@ -1196,14 +1437,16 @@ def phase_times(records, timing):
                    bound_by=bound_by, bytes=nbytes, flops=flops)
         records[key].setdefault("levels", []).append(rec)
     # The top-level numbers of a record are those of its finest per-frame
-    # layout (level 0, the largest); the scorer's layouts stay in "levels".
+    # layout (level 0, the largest) in float32; the scorer's layouts, the
+    # bfloat16 layouts and the skipped launch stay in "levels".
     for rec in records.values():
-        finest = [l for l in rec["levels"] if not l["level"].startswith("reloc")][-1]
+        finest = [l for l in rec["levels"]
+                  if not l["level"].startswith(("reloc", "bf16", "skipped"))][-1]
         rec.update({k: v for k, v in finest.items() if k != "level"})
         rec["library_ms"] = None  # no single PyTorch call computes any of these
 
 
-def phase_profile(cfg, n: int = 10):
+def phase_profile(cfg, n: int = 10, label: str = "default"):
     """torch.profiler over ``n`` tracked frames of one SlamSystem run:
     device operations (kernels, copies, fills) per tracked frame, the
     device time they add up to, and the largest of them."""
@@ -1230,7 +1473,7 @@ def phase_profile(cfg, n: int = 10):
     launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel") / n
     solver = sum(e.count for e in kernels_
                  if any(w in e.key.lower() for w in ("getrf", "potrf", "trsm", "cusolver"))) / n
-    print(f"[profile] {n} tracked frames: {n_k:.1f} kernels per tracked frame "
+    print(f"[profile] {label}, {n} tracked frames: {n_k:.1f} kernels per tracked frame "
           f"({n_ops:.1f} device ops with copies and fills, {launches:.1f} cudaLaunchKernel, "
           f"{solver:.1f} cuSOLVER/cuBLAS solver kernels); "
           f"device time {dev_ms:.3f} ms of {wall_ms:.2f} ms wall per frame under the profiler "
@@ -1255,7 +1498,7 @@ def phase_profile(cfg, n: int = 10):
             and not e.key.startswith(("Memcpy", "Memset"))))
     # A window that recorded nothing (the profiler drops one, rarely) is
     # left out of the means and shown in the lists.
-    print("[profile] kernels per tracked frame by kind: " + ", ".join(
+    print(f"[profile] {label}, kernels per tracked frame by kind: " + ", ".join(
         f"{k} {np.mean([c for c in v if c > 0] or [0]):.1f} (frames {v})"
         for k, v in sorted(by_kind.items())))
 
@@ -2092,6 +2335,299 @@ def phase_gauntlet(w: int = 640, h: int = 480, frames: int = GAUNTLET_FRAMES):
     return ok, total, scorer_launches
 
 
+# SlamConfig.preset("real-v5e") against SlamConfig() (tests/test_torch_preset.py
+# holds the two equal): the u12 codec, the early exit, bf16 planes, the
+# stacked gather (accepted and ignored by the port).
+PRESET_FLIPS = {"depth_codec": "u12", "tracking.early_exit_tol": 1e-5,
+                "tracking.plane_dtype": "bf16", "tracking.stacked_gather": True}
+
+
+def preset_config():
+    """``default_config`` (back end off) with the preset's flips."""
+    return default_config().override(**PRESET_FLIPS)
+
+
+def preset_backend_config():
+    """``backend_config`` (back end on, tight keyframe limits) with the
+    preset's flips."""
+    return backend_config().override(**PRESET_FLIPS)
+
+
+SEQUENCES = {"rigid": lambda: make_sequence(), "mover": lambda: make_mover_sequence(),
+             "loop": lambda: make_loop_sequence()}
+# [preset]'s runs without the knobs, each read beside the runs with them.
+REFERENCE_RUNS = {"default rigid": (default_config, "rigid"),
+                  "default mover": (default_config, "mover"),
+                  "back end on loop": (backend_config, "loop")}
+# [preset]'s runs: label -> (config, sequence, the run without the knobs).
+PRESET_RUNS = {
+    "preset rigid": (preset_config, "rigid", "default rigid"),
+    "preset mover": (preset_config, "mover", "default mover"),
+    "preset loop": (preset_backend_config, "loop", "back end on loop"),
+    "u12 rigid": (lambda: default_config().override(depth_codec="u12"), "rigid", "default rigid"),
+    "u16h rigid": (lambda: default_config().override(depth_codec="u16h"), "rigid",
+                   "default rigid"),
+}
+# max(2 x the port's CPU ATE under the same configuration, 5 mm), the CPU
+# runs held to half by tests/test_torch_preset.py: rigid 0.680 mm, mover
+# 32.631 mm, loop (back end on) 1.123 mm, u12 0.144 mm, u16h 0.101 mm.
+PRESET_ATE_BOUND_M = {"preset rigid": 5e-3, "preset mover": 0.066, "preset loop": 5e-3,
+                      "u12 rigid": 5e-3, "u16h rigid": 5e-3}
+# kinect_sensor at VGA under PRESET_FLIPS: max(2 x the port's CPU ATE on the
+# row, 1.5 mm); the CPU ATE is 1.773 mm (python -m rgbid_tpu_torch.eval.gauntlet
+# --res 640x480 --frames 60 --only kinect_sensor --device cpu with the flips
+# as --set; the JAX package's runner gives 1.767).
+GAUNTLET_PRESET_BOUND_MM = 2 * 1.773
+
+
+def _fixed_reads(run) -> int:
+    """The step's reads that do not depend on what a frame decided: one
+    result per tracked frame and one per vote (n_fused reads and the
+    rescues' evidence reads aside)."""
+    return run["step_reads"] - run["fusion"] - run["rescues"]
+
+
+def phase_preset():
+    """``[preset]``: PRESET_RUNS on the card, each beside its run without the
+    knobs (REFERENCE_RUNS) in the same call. Each run: counted under the
+    sync-debug mode (launch counts set to 0 just before, read just after),
+    then again for run-to-run bit-identity. Checks: ATE within
+    PRESET_ATE_BOUND_M, no loss, finite poses; launches exactly
+    ``expected_launches`` (the host enqueues the whole budget); the device's
+    count of IRLS iterations run, per level, at most those enqueued, and the
+    enqueued ones the launches with a level slot (all but the rescues'
+    evidence); reads = syncs, every read of the step named, and the step's
+    fixed reads per tracked frame (results and votes) those of the run
+    without the knobs; the back end (loop) without errors, with a loop
+    closure when the run without the knobs has one. Then kinect_sensor at
+    VGA under PRESET_FLIPS through the gauntlet runner (bound
+    GAUNTLET_PRESET_BOUND_MM, exact launches, no loss). Returns (ok, counts
+    summed over every counted run, scorer launches)."""
+    ok = True
+    total, scorer_launches = dict.fromkeys(COUNTERS, 0), 0
+    refs, seqs = {}, {}
+
+    def sequence(kind):
+        if kind not in seqs:
+            seqs[kind] = SEQUENCES[kind]()
+        return seqs[kind]
+
+    def add(run):
+        nonlocal scorer_launches
+        for k in COUNTERS:
+            total[k] += run[k]
+        scorer_launches += run["scorer_launches"]
+
+    for label, (cfg_fn, kind) in REFERENCE_RUNS.items():
+        frames, gt = sequence(kind)
+        slam = port.SlamSystem(TUM_FR1, cfg_fn(), device="cuda")
+        _drive(slam, frames[:4], False)  # warm-up
+        run = _drive(slam, frames, True)
+        add(run)
+        tracked = len(frames) - 1
+        run["ate"] = sequence_ate(gt, run["poses"])
+        refs[label] = run
+        print(f"[preset] {label} (without the knobs): ATE {run['ate'] * 1e3:.3f} mm, reads "
+              f"{run['reads']} ({run['step_reads'] / tracked:.3f}/tracked frame in the step, "
+              f"fixed {_fixed_reads(run) / tracked:.3f}), syncs {run['syncs']}, loop closures "
+              f"{run['closures']}")
+    for label, (cfg_fn, kind, ref_label) in PRESET_RUNS.items():
+        frames, gt = sequence(kind)
+        cfg = cfg_fn()
+        tc = cfg.tracking
+        ref = refs[ref_label]
+        slam = port.SlamSystem(TUM_FR1, cfg, device="cuda")
+        _drive(slam, frames[:4], False)
+        kernels.reset_iteration_counts("cuda")
+        run = _drive(slam, frames, True)
+        launched, ran = kernels.iteration_counts("cuda")
+        again = _drive(slam, frames, False)
+        add(run)
+        tracked = len(frames) - 1
+        expected = expected_launches(tc, tracked, run["rerun_iters"], run["rescues"])
+        fused = sum(r.get("n_fused", 0) > 0 for r in run["records"])
+        launches_ok = all(run[k] == v for k, v in expected.items()) and run["fusion"] == fused
+        levels = tc.levels
+        slots_ok = (int(launched.sum()) == run["esm_normal_eq"] - 2 * run["rescues"]
+                    and bool((ran <= launched).all()) and int(launched[levels:].sum()) == 0)
+        reads_text, named = _reads_text(run, tracked)
+        fixed_eq = _fixed_reads(run) == _fixed_reads(ref)
+        ate = sequence_ate(gt, run["poses"])
+        bound = PRESET_ATE_BOUND_M[label]
+        lost = sum(bool(r.get("lost")) for r in run["records"])
+        finite = all(np.isfinite(T).all() for T in run["poses"])
+        identical = (all(np.array_equal(a, b) for a, b in zip(run["poses"], again["poses"]))
+                     and run["records"] == again["records"])
+        backend_ok = True
+        if slam.backend is not None:
+            backend_ok = (run["errors"] == 0 and again["errors"] == 0 and not slam.backend.alive
+                          and (run["closures"] >= 1 or ref["closures"] == 0))
+        checks = {"ate": ate <= bound, "lost": lost == 0, "finite": finite,
+                  "launches": launches_ok, "iterations": slots_ok,
+                  "reads = syncs": run["reads"] == run["syncs"], "reads named": named,
+                  "fixed reads as without the knobs": fixed_eq, "bit-identical": identical,
+                  "back end": backend_ok}
+        good = all(checks.values())
+        ok &= good
+        per_level = ", ".join(f"L{l} {int(ran[l])}/{int(launched[l])}" for l in range(levels))
+        print(f"[preset] {label}: ATE {ate * 1e3:.3f} mm (bound {bound * 1e3:.1f}; without the "
+              f"knobs {ref['ate'] * 1e3:.3f}), lost {lost}; launches {run['esm_normal_eq']} ESM "
+              f"(expected {expected['esm_normal_eq']}), stratified {run['esm_stratified']}, "
+              f"fusion {run['fusion']}; IRLS iterations run/enqueued on the device {per_level} "
+              f"({int(ran.sum())}/{int(launched.sum())} = {ran.sum() / max(launched.sum(), 1):.3f}); "
+              f"reads {run['reads']} = {run['reads'] / tracked:.3f}/tracked frame (without the "
+              f"knobs {ref['reads'] / tracked:.3f}), step fixed {_fixed_reads(run) / tracked:.3f} "
+              f"(without {_fixed_reads(ref) / tracked:.3f}), syncs {run['syncs']}; {reads_text}; "
+              f"loop closures {run['closures']}; checks {checks} {'OK' if good else 'FAIL'}")
+
+    # kinect_sensor under the preset's flips, through the gauntlet runner.
+    w, h = 640, 480
+    intr = Intrinsics(fx=0.808 * w, fy=1.076 * h, cx=w / 2 - 0.5, cy=h / 2 - 0.5, width=w,
+                      height=h)
+    name = "kinect_sensor"
+    seq_kwargs, cfg_over = next((k, o) for n, k, o in gauntlet.scenarios(GAUNTLET_FRAMES)
+                                if n == name)
+    row, slam, launches, exact = _gauntlet_row(name, seq_kwargs, cfg_over, GAUNTLET_FRAMES, intr,
+                                               PRESET_FLIPS, {})
+    be = slam.backend
+    for k in COUNTERS:
+        total[k] += launches[k]
+    scorer_launches += be.loop_closer.scorer.launches
+    checks = {"envelope": row["ate_rmse_mm"] <= GAUNTLET_PRESET_BOUND_MM, "lost": row["lost"] == 0,
+              "finite": all(np.isfinite(T).all() for T in slam.poses()),
+              "thread": be.errors == 0 and not be.alive, "launches": exact}
+    good = all(checks.values())
+    ok &= good
+    print(f"[preset] gauntlet {json.dumps(row)}")
+    print(f"[preset] gauntlet {name} under the preset's flips: ATE {row['ate_rmse_mm']:.3f} mm "
+          f"(bound {GAUNTLET_PRESET_BOUND_MM:.3f}; SlamConfig() recorded "
+          f"{VGA_RECORDED_MM[name][0]}); launches {launches} (exact: {exact}); checks {checks} "
+          f"{'OK' if good else 'FAIL'}")
+    print(f"[preset] {'OK' if ok else 'FAIL'}")
+    return ok, total, scorer_launches
+
+
+# Each knob alone, and the preset, against SlamConfig() (back end off) on
+# the rigid sequence: the ms/frame table of PERF.md.
+KNOB_RUNS = {
+    "SlamConfig()": {},
+    "depth_codec u12": {"depth_codec": "u12"},
+    "depth_codec u16h": {"depth_codec": "u16h"},
+    "plane_dtype bf16": {"tracking.plane_dtype": "bf16"},
+    "plane_dtype bf16-stack": {"tracking.plane_dtype": "bf16-stack"},
+    "plane_dtype bf16-points": {"tracking.plane_dtype": "bf16-points"},
+    "early_exit_tol 1e-5": {"tracking.early_exit_tol": 1e-5},
+    "conv_skip_tol 1e-5": {"tracking.conv_skip_tol": 1e-5},
+    "preset real-v5e": PRESET_FLIPS,
+}
+KNOB_ROUNDS = 4
+
+
+def phase_knob_times():
+    """ms/frame (``process_frame`` + a sync, frames 5..35 of the rigid
+    sequence) of every KNOB_RUNS configuration, in KNOB_ROUNDS rounds whose
+    order alternates forward and backward, one system per configuration:
+    the median over the rounds' frames and the spread of the rounds'
+    medians; and the IRLS iterations run per level under each early-exit
+    configuration. Returns {label: median ms}."""
+    frames, _ = make_sequence()
+    systems = {}
+    for label, over in KNOB_RUNS.items():
+        systems[label] = port.SlamSystem(TUM_FR1, default_config().override(**over), device="cuda")
+        _run_sequence(systems[label], frames[:4])
+    ms = {label: [] for label in KNOB_RUNS}
+    iters = {}
+    for r in range(KNOB_ROUNDS):
+        order = list(KNOB_RUNS) if r % 2 == 0 else list(KNOB_RUNS)[::-1]
+        for label in order:
+            slam = systems[label]
+            slam.reset()
+            kernels.reset_iteration_counts("cuda")
+            _, m = _run_sequence(slam, frames)
+            ms[label].append(np.array(m[5:]))
+            if r == 0:
+                iters[label] = kernels.iteration_counts("cuda")
+    out = {}
+    base = float(np.median(np.concatenate(ms["SlamConfig()"])))
+    for label in KNOB_RUNS:
+        allm = np.concatenate(ms[label])
+        med = float(np.median(allm))
+        rounds = [float(np.median(m)) for m in ms[label]]
+        launched, ran = iters[label]
+        lv = ", ".join(f"L{l} {int(ran[l])}/{int(launched[l])}"
+                       for l in range(default_config().tracking.levels))
+        out[label] = med
+        print(f"[knobs] {label}: ms/frame median {med:.2f} ({med - base:+.2f} against "
+              f"SlamConfig()), rounds {', '.join(f'{x:.2f}' for x in rounds)} (spread "
+              f"{max(rounds) - min(rounds):.2f}), p90 {np.percentile(allm, 90):.2f}; IRLS "
+              f"iterations run/enqueued {lv}")
+    return out
+
+
+CODECS = ("u16", "u12", "u16h")
+
+
+def phase_codecs():
+    """Per upload codec on the rigid sequence: the packed bytes per frame,
+    the host ms of ``pack_frame``, the host ms of ``SlamSystem._upload``
+    (pin and enqueue), and the device time of the host-to-device copy (CUDA
+    events around the copy of an already pinned buffer). Returns the
+    packed first frames, for ``phase_decode_kernels``."""
+    frames, _ = make_sequence()
+    first = {}
+    for codec in CODECS:
+        cfg = default_config().override(depth_codec=codec)
+        slam = port.SlamSystem(TUM_FR1, cfg, device="cuda")
+        pack_ms, up_ms, h2d_ms = [], [], []
+        packed = []
+        for rgb, depth, _ in frames:
+            t0 = time.perf_counter()
+            p = pack_frame(rgb, depth, cfg)
+            pack_ms.append((time.perf_counter() - t0) * 1e3)
+            packed.append(p)
+        for p in packed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slam._upload(p)
+            up_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            pinned = torch.from_numpy(p).pin_memory()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            pinned.to("cuda", non_blocking=True)
+            b.record()
+            torch.cuda.synchronize()
+            h2d_ms.append(a.elapsed_time(b))
+        first[codec] = packed[0]
+        print(f"[codecs] {codec}: {packed[0].nbytes} B per frame {tuple(packed[0].shape)}, "
+              f"pack_frame host ms median {np.median(pack_ms):.3f}, _upload host ms median "
+              f"{np.median(up_ms):.3f}, H2D copy device ms median {np.median(h2d_ms):.4f} "
+              f"({packed[0].nbytes / np.median(h2d_ms) / 1e6:.2f} GB/s)")
+    return first
+
+
+def phase_decode_kernels(first):
+    """The kernels ``decode_frame`` launches per frame for each codec and
+    their device time (torch.profiler over ten decodes of the first frame)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for codec in CODECS:
+        cfg = default_config().override(depth_codec=codec)
+        dev = torch.from_numpy(first[codec]).cuda()
+        decode_frame(dev, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                decode_frame(dev, cfg)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not e.key.startswith(("Memcpy", "Memset"))]
+        print(f"[codecs] {codec}: decode_frame launches {sum(e.count for e in ev) / 10:.1f} "
+              f"kernels a frame, {sum(e.self_device_time_total for e in ev) / 10:.1f} us device "
+              f"time")
+
+
 def phase_cli():
     """The command line in-process on the card (the module docstring, item
     11). Returns (ok, the per-frame launch counts)."""
@@ -2143,8 +2679,10 @@ def main() -> int:
     records.update(s_records)
     records.update(ic_records)
     r_ok, r_timing = phase_scorer_layouts(records)
-    timing += s_timing + ic_timing + r_timing
-    k_ok = k_ok and s_ok and ic_ok and r_ok
+    b_ok, b_timing = phase_bf16_kernels(records)
+    e_ok, e_timing = phase_early_exit()
+    timing += s_timing + ic_timing + r_timing + b_timing + e_timing
+    k_ok = k_ok and s_ok and ic_ok and r_ok and b_ok and e_ok
     runs = [("esm consensus off", slice_config(), False), ("default", default_config(), False),
             ("default mover", default_config(), True), ("ic lagged", ic_config("lagged"), False),
             ("ic exact", ic_config("exact"), False)]
@@ -2175,12 +2713,22 @@ def main() -> int:
     for run in (g_launches, c_launches):
         for k in COUNTERS:
             total[k] += run[k]
+    # The storage, codec and early-exit knobs: SlamConfig.preset("real-v5e")
+    # and the codecs on the main path, then each knob's ms/frame.
+    p_ok, p_launches, p_scorer = phase_preset()
+    m_ok &= p_ok
+    for k in COUNTERS:
+        total[k] += p_launches[k]
+    phase_knob_times()
+    first_packed = phase_codecs()
     print(f"[main] ms/frame median in this call: " + ", ".join(
         f"{k} {v:.2f}" for k, v in median.items()) + f"; IC exact - IC lagged "
           f"{median['ic exact'] - median['ic lagged']:+.2f}, default - consensus off "
           f"{median['default'] - median['esm consensus off']:+.2f}")
     phase_times(records, timing)
     phase_profile(default_config())
+    phase_profile(preset_config(), label="preset real-v5e")
+    phase_decode_kernels(first_packed)
     # Counts summed over the six main-path runs, the counted back-end-on run,
     # the relocalization run, the gauntlet rows and the command line. The scale step runs on
     # the main path as phases of the IC exact launches: its ``launches`` is
@@ -2196,7 +2744,7 @@ def main() -> int:
     # back-end threads' candidates (the loop run's and the gauntlet rows')
     # and the relocalization attempts.
     scorer_launches = (loop_out["launches"] + backend_run["scorer_launches"]
-                       + reloc_run["scorer_launches"] + g_scorer)
+                       + reloc_run["scorer_launches"] + g_scorer + p_scorer)
     records["esm"]["scorer_launches"] = scorer_launches
     records["esm"]["launches"] += scorer_launches
     records["esm"].update(scorer_ms, loop_score_ms=loop_out["score_ms"],

@@ -41,6 +41,18 @@
 // The per-pixel math is shared with the stratified vote reduction
 // (esm_pixel.cuh); the warp, gather, reductions and the end of the
 // iteration with the IC kernel (irls_common.cuh).
+//
+// Storage types: the template intensity, the points and the current stack
+// are float32 or bfloat16 (TrackingConfig.plane_dtype; esm_pixel.cuh), one
+// instantiation per mix the tracker uses (intensity and points f32/f32,
+// bf16/bf16 or f32/bf16, each with an f32 or bf16 stack) and per stack
+// depth: 18. A bf16 plane halves that plane's bytes; the math is f32.
+//
+// Early exit: a launch given the previous iteration's output (``prev``)
+// returns at entry, after block 0 copies ``prev`` to ``out``, when that
+// iteration's step norm is <= p.tol (irls::converged). The host still
+// enqueues every iteration of the budget; a skipped launch costs its
+// launch and one read of 6 floats, and leaves the workspace untouched.
 
 #include <cuda_runtime.h>
 
@@ -53,13 +65,13 @@ using irls::kNormalSums;
 using irls::kThreads;
 
 // One template pixel's 32 terms, added to acc.
-template <int C>
+template <int C, typename IntT, typename PtT, typename StackT>
 __device__ __forceinline__ void esm_pixel(
     const EsmParams& p, int i, const float* __restrict__ T, float s2i, float s2x,
-    const float* __restrict__ kf_int, const float* __restrict__ px,
-    const float* __restrict__ py, const float* __restrict__ pz,
+    const IntT* __restrict__ kf_int, const PtT* __restrict__ px,
+    const PtT* __restrict__ py, const PtT* __restrict__ pz,
     const float* __restrict__ kf_mask, const float* __restrict__ kf_grads,
-    const float* __restrict__ cur, float (&acc)[kNormalSums]) {
+    const StackT* __restrict__ cur, float (&acc)[kNormalSums]) {
   const esm::Point q =
       esm::point<C>(p, i, T, s2i, s2x, kf_int, px, py, pz, kf_mask, kf_grads, cur);
   int t = 0;
@@ -87,15 +99,17 @@ __device__ __forceinline__ void esm_pixel(
   acc[31] += q.valid * q.w0x * q.r_x * q.r_x;
 }
 
-template <int C>
+template <int C, typename IntT, typename PtT, typename StackT>
 __global__ void __launch_bounds__(kThreads, irls::kMinBlocksPerSm)
 esm_kernel(EsmParams p, const float* __restrict__ T, const float* __restrict__ s2i_p,
-           const float* __restrict__ s2x_p, const float* __restrict__ kf_int,
-           const float* __restrict__ px, const float* __restrict__ py,
-           const float* __restrict__ pz, const float* __restrict__ kf_mask,
-           const float* __restrict__ kf_grads, const float* __restrict__ cur,
+           const float* __restrict__ s2x_p, const IntT* __restrict__ kf_int,
+           const PtT* __restrict__ px, const PtT* __restrict__ py,
+           const PtT* __restrict__ pz, const float* __restrict__ kf_mask,
+           const float* __restrict__ kf_grads, const StackT* __restrict__ cur,
            float* __restrict__ partials, unsigned int* __restrict__ counter,
-           float* __restrict__ out) {
+           float* __restrict__ out, const float* __restrict__ prev,
+           unsigned int* __restrict__ runs) {
+  if (irls::converged(prev, p.tol, out)) return;
   float acc[kNormalSums];
 #pragma unroll
   for (int k = 0; k < kNormalSums; ++k) acc[k] = 0.f;
@@ -106,37 +120,86 @@ esm_kernel(EsmParams p, const float* __restrict__ T, const float* __restrict__ s
   }
   irls::block_reduce<kNormalSums>(acc, partials + blockIdx.x * kNormalSums);
   irls::finish_iteration(partials, counter, s2i, s2x, p.use_geometric, /*lagged=*/1, T,
-                         p.damping, out);
+                         p.damping, out, runs);
+}
+
+// The launch's pointers, typed at dispatch.
+struct EsmArgs {
+  const float* T;
+  const float* s2i;
+  const float* s2x;
+  const void* kf_int;
+  const void* px;
+  const void* py;
+  const void* pz;
+  const float* kf_mask;
+  const float* kf_grads;
+  const void* cur;
+  float* partials;
+  unsigned int* counter;
+  float* out;
+  const float* prev;
+  unsigned int* runs;
+};
+
+template <int C, typename IntT, typename PtT, typename StackT>
+void launch(const EsmParams& p, int blocks, const EsmArgs& a, cudaStream_t st) {
+  esm_kernel<C, IntT, PtT, StackT><<<blocks, kThreads, 0, st>>>(
+      p, a.T, a.s2i, a.s2x, static_cast<const IntT*>(a.kf_int),
+      static_cast<const PtT*>(a.px), static_cast<const PtT*>(a.py),
+      static_cast<const PtT*>(a.pz), a.kf_mask, a.kf_grads, static_cast<const StackT*>(a.cur),
+      a.partials, a.counter, a.out, a.prev, a.runs);
+}
+
+template <typename IntT, typename PtT, typename StackT>
+cudaError_t by_channels(int channels, const EsmParams& p, int blocks, const EsmArgs& a,
+                        cudaStream_t st) {
+  switch (channels) {
+    case 3:
+      launch<3, IntT, PtT, StackT>(p, blocks, a, st);
+      return cudaSuccess;
+    case 5:
+      launch<5, IntT, PtT, StackT>(p, blocks, a, st);
+      return cudaSuccess;
+    case 7:
+      launch<7, IntT, PtT, StackT>(p, blocks, a, st);
+      return cudaSuccess;
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // One IRLS iteration: out (irls::kOut floats) = [result (48) | T' (16) |
-// delta (6)]. ``partials`` holds max_blocks rows of 32 floats; ``counter``
-// is 0 on entry and is 0 again when the launch ends.
-extern "C" int esm_irls_launch(EsmParams p, int channels, int max_blocks, const float* T,
-                               const float* s2i, const float* s2x, const float* kf_int,
-                               const float* px, const float* py, const float* pz,
-                               const float* kf_mask, const float* kf_grads, const float* cur,
-                               float* partials, unsigned int* counter, float* out,
+// delta (6)]. ``types``: bit 0 the template intensity is bf16, bit 1 the
+// points, bit 2 the current stack (ops/kernels.py); a bf16 intensity needs
+// bf16 points. ``partials`` holds max_blocks rows of 32 floats; ``counter``
+// is 0 on entry and is 0 again when the launch ends. ``prev``: the previous
+// iteration's out, or nullptr; ``runs``: the level's slot of the count of
+// iterations run, or nullptr.
+extern "C" int esm_irls_launch(EsmParams p, int channels, int types, int max_blocks,
+                               const float* T, const float* s2i, const float* s2x,
+                               const void* kf_int, const void* px, const void* py,
+                               const void* pz, const float* kf_mask, const float* kf_grads,
+                               const void* cur, float* partials, unsigned int* counter,
+                               float* out, const float* prev, unsigned int* runs,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = max(1, min((p.n + kThreads - 1) / kThreads, max_blocks));
-  switch (channels) {
-    case 3:
-      esm_kernel<3><<<blocks, kThreads, 0, st>>>(p, T, s2i, s2x, kf_int, px, py, pz, kf_mask,
-                                                 kf_grads, cur, partials, counter, out);
-      break;
-    case 5:
-      esm_kernel<5><<<blocks, kThreads, 0, st>>>(p, T, s2i, s2x, kf_int, px, py, pz, kf_mask,
-                                                 kf_grads, cur, partials, counter, out);
-      break;
-    case 7:
-      esm_kernel<7><<<blocks, kThreads, 0, st>>>(p, T, s2i, s2x, kf_int, px, py, pz, kf_mask,
-                                                 kf_grads, cur, partials, counter, out);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const EsmArgs a{T, s2i, s2x, kf_int, px, py, pz, kf_mask, kf_grads, cur, partials, counter,
+                  out, prev, runs};
+  using bf = __nv_bfloat16;
+  cudaError_t e;
+  switch (types) {
+    case 0: e = by_channels<float, float, float>(channels, p, blocks, a, st); break;
+    case 2: e = by_channels<float, bf, float>(channels, p, blocks, a, st); break;
+    case 3: e = by_channels<bf, bf, float>(channels, p, blocks, a, st); break;
+    case 4: e = by_channels<float, float, bf>(channels, p, blocks, a, st); break;
+    case 6: e = by_channels<float, bf, bf>(channels, p, blocks, a, st); break;
+    case 7: e = by_channels<bf, bf, bf>(channels, p, blocks, a, st); break;
+    default: e = cudaErrorInvalidValue;
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

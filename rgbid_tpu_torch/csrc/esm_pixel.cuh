@@ -9,6 +9,14 @@
 // Float order: operation by operation as ops/gauss_newton.py::_esm_pointwise
 // (built with -fmad=false), so every per-pixel value rounds like the plain
 // version's.
+//
+// Storage types (TrackingConfig.plane_dtype): the template intensity
+// (IntT), the three backprojected point planes (PtT) and the current stack
+// (StackT) are each float or __nv_bfloat16, chosen independently, because
+// the tracker's call sites mix them (the IRLS loop bf16 / bf16 / bf16 under
+// "bf16", the vote and the rescue's evidence f32 intensity with bf16 points
+// and stack). A bf16 value is widened to f32 at its load; everything after
+// it is the f32 math above. The mask and the template gradients are f32.
 
 #pragma once
 
@@ -31,6 +39,7 @@ struct EsmParams {
   float cap2;          // squared occlusion-gate cap; 0 = uncapped
   float umax, vmax;    // w - 1.001, h - 1.001
   float damping;       // Levenberg damping of the 6x6 solve
+  float tol;           // early exit: skip once the previous step's norm <= tol
 };
 
 namespace esm {
@@ -45,17 +54,18 @@ struct Point {
   float r_i, r_x, valid;
 };
 
-template <int C>
+template <int C, typename IntT, typename PtT, typename StackT>
 __device__ __forceinline__ Point point(
     const EsmParams& p, int i, const float* __restrict__ T, float s2i, float s2x,
-    const float* __restrict__ kf_int, const float* __restrict__ px,
-    const float* __restrict__ py, const float* __restrict__ pz,
+    const IntT* __restrict__ kf_int, const PtT* __restrict__ px,
+    const PtT* __restrict__ py, const PtT* __restrict__ pz,
     const float* __restrict__ kf_mask, const float* __restrict__ kf_grads,
-    const float* __restrict__ cur) {
+    const StackT* __restrict__ cur) {
   using irls::clamp_max;
   using irls::clamp_min;
+  using irls::to_f32;
   Point q;
-  const float Px = px[i], Py = py[i], Pz = pz[i];
+  const float Px = to_f32(px[i]), Py = to_f32(py[i]), Pz = to_f32(pz[i]);
   const irls::Projection pr = irls::project(T, Px, Py, Pz, p.fx, p.fy, p.cx, p.cy);
   const float rho = pr.rho;
   const irls::Corners cn = irls::corners(pr.up, pr.vp, p.h, p.w, p.umax, p.vmax);
@@ -65,7 +75,7 @@ __device__ __forceinline__ Point point(
   for (int c = 0; c < C; ++c) smp[c] = irls::blend(cur + c * hw, cn);
   const float mask_ok = irls::corner_product(cur + 2 * hw, cn);
   q.valid = kf_mask[i] * pr.front * cn.inb * mask_ok;
-  q.r_i = (smp[0] - kf_int[i]) * q.valid;
+  q.r_i = (smp[0] - to_f32(kf_int[i])) * q.valid;
   q.r_x = (smp[1] - rho) * q.valid;
 
   // Student-t weights; the occlusion gate touches the weights only.

@@ -43,6 +43,11 @@
 // 1.3-2.9 MB, 0.4-0.9 us at 3.35 TB/s) are far below the launch, the
 // gather's dependent reads (~2.9 us with the per-pixel work) and the tail
 // (block sums, the cluster barrier, the arrival and the last rows, ~2.9 us).
+//
+// Storage types: the points and the current stack are float32 or bfloat16
+// each (TrackingConfig.plane_dtype; the vote reads the f32 template
+// intensity with the tracker's bf16 points and stack under "bf16"), one
+// instantiation per mix and stack depth: 12.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -141,14 +146,14 @@ __device__ __forceinline__ float transpose_sum(float (&v)[32], int lane) {
   return v[0];
 }
 
-template <int C>
+template <int C, typename PtT, typename StackT>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 esm_stratified_kernel(EsmParams p, StrataParams sp, const float* __restrict__ T,
                       const float* __restrict__ s2i_p, const float* __restrict__ s2x_p,
-                      const float* __restrict__ kf_int, const float* __restrict__ px,
-                      const float* __restrict__ py, const float* __restrict__ pz,
+                      const float* __restrict__ kf_int, const PtT* __restrict__ px,
+                      const PtT* __restrict__ py, const PtT* __restrict__ pz,
                       const float* __restrict__ kf_mask, const float* __restrict__ kf_grads,
-                      const float* __restrict__ cur, const float* __restrict__ xi,
+                      const StackT* __restrict__ cur, const float* __restrict__ xi,
                       float* __restrict__ partials, unsigned int* __restrict__ counter,
                       float* __restrict__ out) {
   // [kBlockWarps][K][kSums] warp rows, then (read in rank 0 only)
@@ -246,13 +251,17 @@ esm_stratified_kernel(EsmParams p, StrataParams sp, const float* __restrict__ T,
   if (threadIdx.x == 0) *counter = 0u;
 }
 
-template <int C>
+template <int C, typename PtT, typename StackT>
 cudaError_t launch(const EsmParams& p, const StrataParams& sp, int partial_rows, const float* T,
-                   const float* s2i, const float* s2x, const float* kf_int, const float* px,
-                   const float* py, const float* pz, const float* kf_mask,
-                   const float* kf_grads, const float* cur, const float* xi, float* partials,
+                   const float* s2i, const float* s2x, const float* kf_int, const void* px_v,
+                   const void* py_v, const void* pz_v, const float* kf_mask,
+                   const float* kf_grads, const void* cur_v, const float* xi, float* partials,
                    unsigned int* counter, float* out, cudaStream_t st) {
-  auto* kernel = esm_stratified_kernel<C>;
+  auto* kernel = esm_stratified_kernel<C, PtT, StackT>;
+  const PtT* px = static_cast<const PtT*>(px_v);
+  const PtT* py = static_cast<const PtT*>(py_v);
+  const PtT* pz = static_cast<const PtT*>(pz_v);
+  const StackT* cur = static_cast<const StackT*>(cur_v);
   const int want = (p.n + kClusterBlocks * kBlockThreads * kPixelsPerThread - 1) /
                    (kClusterBlocks * kBlockThreads * kPixelsPerThread);
   const int clusters = max(1, min(want, partial_rows));
@@ -297,33 +306,67 @@ cudaError_t launch(const EsmParams& p, const StrataParams& sp, int partial_rows,
   return e != cudaSuccess ? e : last;
 }
 
+template <typename PtT, typename StackT>
+cudaError_t by_channels(int channels, const EsmParams& p, const StrataParams& sp,
+                        int partial_rows, const float* T, const float* s2i, const float* s2x,
+                        const float* kf_int, const void* px, const void* py, const void* pz,
+                        const float* kf_mask, const float* kf_grads, const void* cur,
+                        const float* xi, float* partials, unsigned int* counter, float* out,
+                        cudaStream_t st) {
+  switch (channels) {
+    case 3:
+      return launch<3, PtT, StackT>(p, sp, partial_rows, T, s2i, s2x, kf_int, px, py, pz,
+                                    kf_mask, kf_grads, cur, xi, partials, counter, out, st);
+    case 5:
+      return launch<5, PtT, StackT>(p, sp, partial_rows, T, s2i, s2x, kf_int, px, py, pz,
+                                    kf_mask, kf_grads, cur, xi, partials, counter, out, st);
+    case 7:
+      return launch<7, PtT, StackT>(p, sp, partial_rows, T, s2i, s2x, kf_int, px, py, pz,
+                                    kf_mask, kf_grads, cur, xi, partials, counter, out, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// One vote's reduction: out (K * 50 floats, row-major (K, 50)). ``partials``
-// holds ``partial_rows`` (>= 1) rows of K * 50 floats, one per cluster;
+// One vote's reduction: out (K * 50 floats, row-major (K, 50)). ``types``:
+// bit 1 the points are bf16, bit 2 the current stack (bit 0, a bf16
+// template intensity, has no instantiation). ``partials`` holds
+// ``partial_rows`` (>= 1) rows of K * 50 floats, one per cluster;
 // ``counter`` is 0 on entry and is 0 again when the launch ends. Returns
 // the CUDA status of the launch.
-extern "C" int esm_stratified_launch(EsmParams p, StrataParams sp, int channels,
+extern "C" int esm_stratified_launch(EsmParams p, StrataParams sp, int channels, int types,
                                      int partial_rows, const float* T, const float* s2i,
-                                     const float* s2x, const float* kf_int, const float* px,
-                                     const float* py, const float* pz, const float* kf_mask,
-                                     const float* kf_grads, const float* cur, const float* xi,
+                                     const float* s2x, const float* kf_int, const void* px,
+                                     const void* py, const void* pz, const float* kf_mask,
+                                     const float* kf_grads, const void* cur, const float* xi,
                                      float* partials, unsigned int* counter, float* out,
                                      void* stream) {
   if (sp.k < 1 || sp.k > kMaxStrata || partial_rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (channels) {
-    case 3:
-      return static_cast<int>(launch<3>(p, sp, partial_rows, T, s2i, s2x, kf_int, px, py, pz,
-                                        kf_mask, kf_grads, cur, xi, partials, counter, out, st));
-    case 5:
-      return static_cast<int>(launch<5>(p, sp, partial_rows, T, s2i, s2x, kf_int, px, py, pz,
-                                        kf_mask, kf_grads, cur, xi, partials, counter, out, st));
-    case 7:
-      return static_cast<int>(launch<7>(p, sp, partial_rows, T, s2i, s2x, kf_int, px, py, pz,
-                                        kf_mask, kf_grads, cur, xi, partials, counter, out, st));
+  using bf = __nv_bfloat16;
+  cudaError_t e;
+  switch (types) {
+    case 0:
+      e = by_channels<float, float>(channels, p, sp, partial_rows, T, s2i, s2x, kf_int, px, py,
+                                    pz, kf_mask, kf_grads, cur, xi, partials, counter, out, st);
+      break;
+    case 2:
+      e = by_channels<bf, float>(channels, p, sp, partial_rows, T, s2i, s2x, kf_int, px, py, pz,
+                                 kf_mask, kf_grads, cur, xi, partials, counter, out, st);
+      break;
+    case 4:
+      e = by_channels<float, bf>(channels, p, sp, partial_rows, T, s2i, s2x, kf_int, px, py, pz,
+                                 kf_mask, kf_grads, cur, xi, partials, counter, out, st);
+      break;
+    case 6:
+      e = by_channels<bf, bf>(channels, p, sp, partial_rows, T, s2i, s2x, kf_int, px, py, pz,
+                              kf_mask, kf_grads, cur, xi, partials, counter, out, st);
+      break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      e = cudaErrorInvalidValue;
   }
+  return static_cast<int>(e);
 }

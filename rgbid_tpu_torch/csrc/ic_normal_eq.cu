@@ -39,6 +39,11 @@
 //     block to arrive writes the raw sums and the updated scales.
 // T and every scale are read through device pointers, so the tracker's
 // loop never waits on the host and runs no other op.
+// Early exit: both IRLS kernels take the previous iteration's output
+// (``prev``) and return at entry when its step norm is <= p.tol
+// (irls::converged; block 0 copies ``prev`` to ``out``). In the exact
+// kernel every block takes that decision from the same floats before its
+// first grid barrier, so no block waits on one that has left.
 //
 // What bounds it on this card: at the tracker's sizes (at most 77k template
 // pixels) the normal phase reads 17 template planes and 3 current planes of
@@ -74,6 +79,7 @@ struct IcParams {
   float gate2;        // gate_sigmas^2 (inlier test)
   float umax, vmax;   // w - 1.001, h - 1.001
   float damping;      // Levenberg damping of the 6x6 solve (normal pass)
+  float tol;          // early exit: skip once the previous step's norm <= tol
 };
 
 namespace {
@@ -248,13 +254,15 @@ ic_normal_kernel(IcParams p, int lagged, const float* __restrict__ T,
                  const float* __restrict__ kf_mask, const float* __restrict__ jac,
                  const float* __restrict__ cur_int, const float* __restrict__ cur_xi,
                  const float* __restrict__ cur_mask, float* __restrict__ partials,
-                 unsigned int* __restrict__ counter, float* __restrict__ out) {
+                 unsigned int* __restrict__ counter, float* __restrict__ out,
+                 const float* __restrict__ prev, unsigned int* __restrict__ runs) {
+  if (irls::converged(prev, p.tol, out)) return;
   const float s2i = *s2i_p;
   const float s2x = *s2x_p;
   normal_phase<Geo>(p, T, s2i, s2x, kf_int, px, py, pz, kf_mask, jac, cur_int, cur_xi, cur_mask,
                     partials);
   irls::finish_iteration(partials, counter, s2i, s2x, p.use_geometric, lagged, T, p.damping,
-                         out);
+                         out, runs);
 }
 
 // counter[0]: the last-block arrival count; counter[1], counter[2]: the
@@ -270,7 +278,10 @@ ic_exact_kernel(IcParams p, int sigma_steps, const float* __restrict__ T,
                 const float* __restrict__ cur_int, const float* __restrict__ cur_xi,
                 const float* __restrict__ cur_mask, float* __restrict__ partials,
                 float* __restrict__ sigma_rows, float* __restrict__ published,
-                unsigned int* __restrict__ counter, float* __restrict__ out) {
+                unsigned int* __restrict__ counter, float* __restrict__ out,
+                const float* __restrict__ prev, unsigned int* __restrict__ runs) {
+  // Before the first grid_arrive: every block leaves here, or none does.
+  if (irls::converged(prev, p.tol, out)) return;
   float s2i = *s2i_p;
   float s2x = *s2x_p;
   __shared__ float sums[kSigmaSums];
@@ -297,7 +308,7 @@ ic_exact_kernel(IcParams p, int sigma_steps, const float* __restrict__ T,
   normal_phase<Geo>(p, T, s2i, s2x, kf_int, px, py, pz, kf_mask, jac, cur_int, cur_xi, cur_mask,
                     partials);
   if (irls::finish_iteration(partials, counter, s2i, s2x, Geo, /*lagged=*/0, T, p.damping,
-                             out) &&
+                             out, runs) &&
       threadIdx.x == 0) {
     counter[1] = 0u;  // every block has passed every barrier
   }
@@ -341,21 +352,24 @@ extern "C" int ic_sigma_launch(IcParams p, int max_blocks, const float* T, const
 // returns its error code. Otherwise ic_normal_kernel, the result lagged or
 // not. ``partials`` holds max_blocks rows of 32 floats, ``sigma_rows``
 // max_blocks + 1 rows of 3 (the last for the published sums); ``counter``
-// (3 words) is 0, 0, any on entry and leaves the first two at 0.
+// (3 words) is 0, 0, any on entry and leaves the first two at 0. ``prev``:
+// the previous iteration's out, or nullptr; ``runs``: the level's slot of
+// the count of iterations run, or nullptr.
 extern "C" int ic_irls_launch(IcParams p, int lagged, int sigma_steps, int max_blocks,
                               const float* T, const float* s2i, const float* s2x,
                               const float* kf_int, const float* px, const float* py,
                               const float* pz, const float* kf_mask, const float* jac,
                               const float* cur_int, const float* cur_xi, const float* cur_mask,
                               float* partials, float* sigma_rows, unsigned int* counter,
-                              float* out, void* stream) {
+                              float* out, const float* prev, unsigned int* runs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (sigma_steps > 0) {
     float* published = sigma_rows + max_blocks * kSigmaSums;
     void* args[] = {&p,       &sigma_steps, &T,          &s2i,       &s2x,
                     &kf_int,  &px,          &py,         &pz,        &kf_mask,
                     &jac,     &cur_int,     &cur_xi,     &cur_mask,  &partials,
-                    &sigma_rows, &published, &counter,   &out};
+                    &sigma_rows, &published, &counter,   &out,       &prev,
+                    &runs};
     int blocks = 0;
     cudaError_t e;
     if (p.use_geometric) {
@@ -381,11 +395,13 @@ extern "C" int ic_irls_launch(IcParams p, int lagged, int sigma_steps, int max_b
   if (p.use_geometric) {
     ic_normal_kernel<true><<<blocks, kThreads, 0, st>>>(p, lagged, T, s2i, s2x, kf_int, px, py,
                                                          pz, kf_mask, jac, cur_int, cur_xi,
-                                                         cur_mask, partials, counter, out);
+                                                         cur_mask, partials, counter, out, prev,
+                                                         runs);
   } else {
     ic_normal_kernel<false><<<blocks, kThreads, 0, st>>>(p, lagged, T, s2i, s2x, kf_int, px, py,
                                                           pz, kf_mask, jac, cur_int, cur_xi,
-                                                          cur_mask, partials, counter, out);
+                                                          cur_mask, partials, counter, out, prev,
+                                                         runs);
   }
   return static_cast<int>(cudaGetLastError());
 }

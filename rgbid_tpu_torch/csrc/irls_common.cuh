@@ -1,10 +1,11 @@
 // Device code shared by the hand kernels (esm_normal_eq.cu, esm_stratified.cu,
-// ic_normal_eq.cu, fusion.cu): the per-pixel warp and 4-corner gather, the fixed-order block
-// reduction, the last-block pattern (an arrival counter, then the
-// cross-block sum in block-index order), a grid-wide barrier for
-// cooperative launches, and the end of an IRLS iteration in the last block
-// to finish (the normal-equation finalize, the 6x6 solve and the pose
-// update of irls_solve.cuh).
+// ic_normal_eq.cu, fusion.cu): the per-pixel warp and 4-corner gather (of
+// float32 or bfloat16 planes), the fixed-order block reduction, the
+// last-block pattern (an arrival counter, then the cross-block sum in
+// block-index order), a grid-wide barrier for cooperative launches, the
+// early-exit test of an IRLS launch, and the end of an IRLS iteration in
+// the last block to finish (the normal-equation finalize, the 6x6 solve
+// and the pose update of irls_solve.cuh).
 //
 // Float order: every function follows the plain PyTorch versions
 // (ops/warp.py, ops/gauss_newton.py) operation by operation; the build
@@ -13,6 +14,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "irls_solve.cuh"
@@ -85,14 +87,24 @@ __device__ __forceinline__ Corners corners(float up, float vp, int h, int w, flo
   return c;
 }
 
+// A stored plane value as float32: bfloat16 widens exactly, and every
+// operation after the load is float32 (the plain versions widen too).
+// Loads are one element each: at an odd width (641x481) a bfloat16 plane's
+// start is not 4-byte aligned, so paired loads would need a check.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 // Bilinear blend of one plane, in sample_stack7's order.
-__device__ __forceinline__ float blend(const float* __restrict__ pl, const Corners& c) {
-  return pl[c.i00] * c.w00 + pl[c.i01] * c.w01 + pl[c.i10] * c.w10 + pl[c.i11] * c.w11;
+template <typename P>
+__device__ __forceinline__ float blend(const P* __restrict__ pl, const Corners& c) {
+  return to_f32(pl[c.i00]) * c.w00 + to_f32(pl[c.i01]) * c.w01 + to_f32(pl[c.i10]) * c.w10 +
+         to_f32(pl[c.i11]) * c.w11;
 }
 
 // The {0, 1} mask sampled as the product of all four corners.
-__device__ __forceinline__ float corner_product(const float* __restrict__ pl, const Corners& c) {
-  return pl[c.i00] * pl[c.i01] * pl[c.i10] * pl[c.i11];
+template <typename P>
+__device__ __forceinline__ float corner_product(const P* __restrict__ pl, const Corners& c) {
+  return to_f32(pl[c.i00]) * to_f32(pl[c.i01]) * to_f32(pl[c.i10]) * to_f32(pl[c.i11]);
 }
 
 // Student-t weight without the 1/sigma^2 factor: (nu + 1) / (nu + r^2 / s2),
@@ -245,6 +257,31 @@ __device__ __forceinline__ void grid_wait(unsigned int* __restrict__ generation,
 // [48:64] the updated pose T' (4x4 row-major), [64:70] the applied delta.
 constexpr int kResult = 48;
 constexpr int kOut = kResult + 16 + 6;
+// Level slots of the device's count of IRLS iterations run (ops/kernels.py
+// MAX_SLOTS).
+constexpr int kMaxSlots = 8;
+
+// The early exit (TrackingConfig.early_exit_tol, conv_skip_tol): a level
+// stops changing once the previous iteration's applied step has norm <=
+// tol. Every thread of every block calls it at entry with the previous
+// launch's output ``prev`` (nullptr for a level's first iteration, or with
+// the exit off): it reads prev's delta (prev[64:70]), takes the norm in
+// ops/gauss_newton.py::step_norm's order, and returns true when
+// !(norm > tol) — the same in every block, since all read the same floats.
+// Block 0 has then copied prev's kOut floats to ``out`` (the carry goes
+// on unchanged, the pose, the scales and the result included), and the
+// caller returns before it touches its partials, rows or counter words.
+__device__ __forceinline__ bool converged(const float* __restrict__ prev, float tol,
+                                          float* __restrict__ out) {
+  if (prev == nullptr) return false;
+  const float* d = prev + kResult + 16;
+  float s = d[0] * d[0];
+#pragma unroll
+  for (int k = 1; k < 6; ++k) s = s + d[k] * d[k];
+  if (sqrtf(s) > tol) return false;
+  if (blockIdx.x == 0 && threadIdx.x < kOut) out[threadIdx.x] = prev[threadIdx.x];
+  return true;
+}
 
 // The end of one IRLS iteration. Every thread of every block calls it once
 // its block's row of normal-equation partials is written. The last block
@@ -252,12 +289,13 @@ constexpr int kOut = kResult + 16 + 6;
 // writes the result (with ``lagged`` the scales are the updated ones for
 // the next iteration, a disabled geometric channel keeping ``s2x``;
 // without it, ``s2i`` and ``s2x``, the scales the pass weighted with),
-// then one thread solves the 6x6 system and updates the pose. Returns true
-// in the last block.
+// then one thread solves the 6x6 system and updates the pose, and adds one
+// to ``runs`` (a level slot of the count of iterations run; nullptr: not
+// counted). Returns true in the last block.
 __device__ __forceinline__ bool finish_iteration(
     const float* __restrict__ partials, unsigned int* __restrict__ counter, float s2i,
     float s2x, int use_geometric, int lagged, const float* __restrict__ T, float damping,
-    float* __restrict__ out) {
+    float* __restrict__ out, unsigned int* __restrict__ runs) {
   if (!last_to_arrive(counter, kNormalSums)) return false;
 
   __shared__ float sums[kNormalSums];
@@ -289,6 +327,7 @@ __device__ __forceinline__ bool finish_iteration(
   if (t == 0) {
     solve_update(res, res + 36, damping, res[45], T, out + kResult, out + kResult + 16);
     *counter = 0u;
+    if (runs != nullptr) *runs += 1u;
   }
   return true;
 }

@@ -60,6 +60,7 @@ class EsmParams(ctypes.Structure):
         ("umax", ctypes.c_float),
         ("vmax", ctypes.c_float),
         ("damping", ctypes.c_float),
+        ("tol", ctypes.c_float),
     ]
 
 
@@ -95,6 +96,7 @@ class IcParams(ctypes.Structure):
         ("umax", ctypes.c_float),
         ("vmax", ctypes.c_float),
         ("damping", ctypes.c_float),
+        ("tol", ctypes.c_float),
     ]
 
 
@@ -143,15 +145,15 @@ class Library:
         lib = ctypes.CDLL(str(path))
         P = ctypes.c_void_p
         I = ctypes.c_int
-        lib.esm_irls_launch.argtypes = [EsmParams, I, I] + [P] * 14
+        lib.esm_irls_launch.argtypes = [EsmParams, I, I, I] + [P] * 16
         lib.esm_irls_launch.restype = I
-        lib.esm_stratified_launch.argtypes = [EsmParams, StrataParams, I, I] + [P] * 15
+        lib.esm_stratified_launch.argtypes = [EsmParams, StrataParams, I, I, I] + [P] * 15
         lib.esm_stratified_launch.restype = I
         lib.fusion_launch.argtypes = [FusionParams, I] + [P] * 16
         lib.fusion_launch.restype = I
         lib.ic_sigma_launch.argtypes = [IcParams, I] + [P] * 15
         lib.ic_sigma_launch.restype = I
-        lib.ic_irls_launch.argtypes = [IcParams, I, I, I] + [P] * 17
+        lib.ic_irls_launch.argtypes = [IcParams, I, I, I] + [P] * 19
         lib.ic_irls_launch.restype = I
         self.esm_irls_launch = lib.esm_irls_launch
         self.esm_stratified_launch = lib.esm_stratified_launch
@@ -234,13 +236,16 @@ def library() -> Library:
     return _LIBRARY
 
 
-def require(t, name: str, device, shape=None, contiguous: bool = True) -> None:
-    """Check a kernel argument: device, float32, contiguous (unless the
-    kernel takes its strides), shape."""
+def require(t, name: str, device, shape=None, contiguous: bool = True,
+            dtypes=(torch.float32,)) -> None:
+    """Check a kernel argument: device, dtype (float32 unless the kernel
+    has an instantiation for others), contiguous (unless the kernel takes
+    its strides), shape."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name} must be {names}, got {t.dtype}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

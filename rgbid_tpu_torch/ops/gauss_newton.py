@@ -108,7 +108,11 @@ def _esm_pointwise(
     Gram of ``stratified_normal_eq`` reads them).
     """
     n_ch = cur_stack.shape[0]
-    Px, Py, Pz = kf_points
+    # The template intensity and points may be stored bfloat16
+    # (TrackingConfig.plane_dtype), and so may the stack: every value is
+    # widened to float32 before any arithmetic, as the kernels load it.
+    Px, Py, Pz = (p.float() for p in kf_points)
+    kf_int = kf_int.float()
     up, vp, rho, front = transform_project(Px, Py, Pz, T, intr)
     samples, mask_ok, inb = sample_stack7(cur_stack, up, vp)
     i_s, xi_s = samples[0], samples[1]
@@ -427,6 +431,20 @@ def residuals_and_normal_eq(
             sigma2_int, sigma2_xi = st.sigma2_int, st.sigma2_xi
     return _normal_eq(pw, jac12, nu, sigma2_int, sigma2_xi, use_geometric, gate_sigmas,
                       lagged=not exact)
+
+
+def step_norm(delta: torch.Tensor) -> torch.Tensor:
+    """The Euclidean norm of a (6,) step in the kernels' float order: the
+    squares summed from the first, then the square root. The IRLS kernels'
+    early exit (``TrackingConfig.early_exit_tol`` / ``conv_skip_tol``) tests
+    ``not (step_norm(delta) > tol)`` with the float32 tolerance."""
+    s = delta[0] * delta[0]
+    for k in range(1, 6):
+        s = s + delta[k] * delta[k]
+    # Correctly rounded, as the card's sqrtf is: PyTorch's float32 sqrt on
+    # the CPU may be an ulp off, while a float64 root rounded to float32 is
+    # the correctly rounded float32 root.
+    return torch.sqrt(s.double()).float()
 
 
 def ic_update(T: torch.Tensor, H: torch.Tensor, b: torch.Tensor, damping: float, n_valid):

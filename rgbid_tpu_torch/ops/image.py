@@ -76,6 +76,30 @@ def masked_blur(img: torch.Tensor, mask: torch.Tensor, stride=(1, 1)):
     return out, den
 
 
+def _up2_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """2x linear upsample along ``axis``: out[2i] = x[i] (exact),
+    out[2i+1] = (x[i] + x[i+1]) / 2 (edge-clamped)."""
+    n = x.shape[axis]
+    nxt = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], dim=axis)
+    mid = 0.5 * (x + nxt)
+    shape = list(x.shape)
+    shape[axis] = 2 * n
+    return torch.stack([x, mid], dim=axis + 1).reshape(shape)
+
+
+def upsample2x_renorm(xi: torch.Tensor, mask: torch.Tensor):
+    """Validity-renormalized bilinear 2x upsample of a sparse-valid field,
+    (H, W) -> (2H, 2W). Even output coordinates reproduce the input
+    exactly where valid (xi m / m); odd ones interpolate over the valid
+    neighbours only, so a valid/invalid boundary copies the valid side.
+    Output mask: any contributing input pixel valid. The "u16h" upload
+    codec's reconstruction (tracking/step.py)."""
+    num = _up2_axis(_up2_axis(xi * mask, 0), 1)
+    den = _up2_axis(_up2_axis(mask, 0), 1)
+    out = torch.where(den > 1e-6, num / torch.clamp(den, min=1e-6), torch.zeros_like(num))
+    return out, (den > 1e-6).to(torch.float32)
+
+
 def downsample(img: torch.Tensor, mask: torch.Tensor, min_weight: float = 0.25):
     """One pyramid step: masked blur + 2x subsample (stride-2 convs)."""
     out, wgt = masked_blur(img, mask, stride=(2, 2))

@@ -25,6 +25,21 @@
 On a CPU tensor each runs its plain PyTorch version (ops/gauss_newton.py),
 and a step adds ``ic_update``; on a CUDA tensor it launches its kernel or
 raises. There is no other path: no fallback, no switch.
+
+Plane storage (``TrackingConfig.plane_dtype``): the ESM and stratified
+kernels take the template intensity, the points and the current stack as
+float32 or bfloat16 each, and dispatch on the tensors' dtypes to an
+instantiation that loads that type (``_plane_types``); a mix without one
+raises ``TypeError``. No plane is converted to float32 first.
+
+Early exit (``TrackingConfig.early_exit_tol`` / ``conv_skip_tol``): the
+IRLS steps take the previous iteration's ``IrlsStep`` (``prev``) and
+``tol``. When ``tol > 0`` and ``step_norm(prev.delta) <= tol`` the
+iteration is skipped and the step equals ``prev``: on the card the launch
+returns at entry after copying ``prev``'s output, on the CPU the wrapper
+returns ``prev``. The host enqueues every launch of the budget and reads
+nothing. Steps given a level ``slot`` are counted per slot: launched on the
+host, run (not skipped) on the device (``iteration_counts``).
 ``esm_residuals_and_normal_eq.launches``, ``ic_normal_eq.launches``,
 ``ic_sigma_stats.launches`` and ``esm_stratified.launches`` count kernel
 launches, whichever wrapper made them; ``ic_normal_eq.sigma_phases`` counts
@@ -33,9 +48,9 @@ the scale steps run inside IC launches.
 The launches share one per-card workspace (``workspace``): a (max_blocks,
 32) block partials buffer, a (max_blocks + 1, 3) buffer of scale-step rows
 and their published sums, the stratified launch's (16, 16 x 50) cluster
-rows, and three counter words (the last-block arrival count and the
+rows, three counter words (the last-block arrival count and the
 exact-mode grid barrier's arrivals, both 0 between launches, and its
-generation). The fusion kernel (mapping/fusion.py) uses it too. A
+generation), and the IRLS iterations run per level slot. The fusion kernel (mapping/fusion.py) uses it too. A
 stratified launch is one pass over the template in thread-block clusters
 of 16 blocks of 256 threads, one cluster per 4096 pixels (5 at the vote
 layouts; at most 16, after which threads take more pixels), each block
@@ -58,7 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,13 +81,14 @@ import torch
 from ..core.camera import Intrinsics
 from . import _build
 from .gauss_newton import STRATIFIED_SUMS, IrlsResult, SigmaStats, ic_update, normal_eq_plain
-from .gauss_newton import sigma_stats_plain, stratified_sums
+from .gauss_newton import sigma_stats_plain, step_norm, stratified_sums
 from .gauss_newton import esm_residuals_and_normal_eq as esm_residuals_and_normal_eq_plain
 from .gauss_newton import residuals_and_normal_eq as residuals_and_normal_eq_plain
 
 _SUMS = 32  # irls::kNormalSums
 _SIGMA_SUMS = 3
 _OUT = 48 + 16 + 6  # irls::kOut: result, T', delta
+MAX_SLOTS = 8  # irls::kMaxSlots: level slots of the iteration counts
 _BLOCKS_PER_SM = 3  # irls::kMinBlocksPerSm: the kernels' grid per SM at most
 _STRATA_CLUSTERS = 16  # a stratified launch's clusters at most
 
@@ -84,6 +100,9 @@ class IrlsStep(NamedTuple):
     T: torch.Tensor  # (4, 4) orthonormalize(T . exp(-delta))
     result: IrlsResult
     delta: torch.Tensor  # (6,)
+    # On the card: the launch's irls::kOut floats, which the views above
+    # share; the next iteration's early-exit test reads its delta.
+    out: Optional[torch.Tensor] = None
 
 
 class Workspace(NamedTuple):
@@ -92,6 +111,7 @@ class Workspace(NamedTuple):
     sigma_rows: torch.Tensor  # (max_blocks + 1, 3) float32: block rows, then the step's sums
     strata_partials: torch.Tensor  # (_STRATA_CLUSTERS, MAX_STRATA * 50) float32: cluster rows
     counter: torch.Tensor  # (3,) int32: arrivals, barrier arrivals, barrier generation
+    runs: torch.Tensor  # (MAX_SLOTS,) int32: IRLS iterations run per level slot
 
 
 _WORKSPACES: dict = {}
@@ -118,6 +138,7 @@ def _make_workspace(key: int, dev: torch.device) -> Workspace:
         torch.empty((_STRATA_CLUSTERS, _build.MAX_STRATA * STRATIFIED_SUMS),
                     dtype=torch.float32, device=dev),
         torch.zeros((3,), dtype=torch.int32, device=dev),
+        torch.zeros((MAX_SLOTS,), dtype=torch.int32, device=dev),
     )
     _WORKSPACES[key] = ws
     return ws
@@ -147,12 +168,88 @@ def _irls_step(out: torch.Tensor) -> IrlsStep:
     ops: each costs host time on every iteration)."""
     H, b, scalars, T, delta = out.split([36, 6, 6, 16, 6])
     s2i, s2x, err, n_valid, inl, _ = scalars.unbind()
-    return IrlsStep(T.view(4, 4), IrlsResult(H.view(6, 6), b, s2i, s2x, err, n_valid, inl), delta)
+    return IrlsStep(T.view(4, 4), IrlsResult(H.view(6, 6), b, s2i, s2x, err, n_valid, inl), delta,
+                    out)
 
 
 def _plain_step(T, res: IrlsResult, damping: float) -> IrlsStep:
     T_out, delta = ic_update(T, res.H, res.b, damping, res.n_valid)
     return IrlsStep(T_out, res, delta)
+
+
+# Iteration counts per level slot: launched (host, both devices) and run on
+# the CPU (the card keeps its own in the workspace).
+_LAUNCHED = np.zeros((MAX_SLOTS,), np.int64)
+_CPU_RUNS = np.zeros((MAX_SLOTS,), np.int64)
+
+
+def _count_slot(slot: int) -> None:
+    if not -1 <= slot < MAX_SLOTS:
+        raise ValueError(f"slot {slot}: the iteration counts have slots 0 to {MAX_SLOTS - 1}")
+    if slot >= 0:
+        _LAUNCHED[slot] += 1
+
+
+def _cpu_skips(prev: Optional[IrlsStep], tol: float) -> bool:
+    """The plain version's early-exit test, the kernels' float order and
+    float32 tolerance: prev's step norm is not above ``tol``."""
+    if prev is None or tol <= 0.0:
+        return False
+    return not float(step_norm(prev.delta)) > np.float32(tol)
+
+
+def _exit_args(prev: Optional[IrlsStep], tol: float, slot: int, ws: "Workspace"):
+    """(prev pointer, runs pointer) of a launch: ``prev``'s output when the
+    exit is on (``tol > 0``), the level's count slot when given."""
+    prev_ptr = None
+    if prev is not None and tol > 0.0:
+        if prev.out is None or prev.out.device != ws.runs.device:
+            raise ValueError("prev must be the previous launch's IrlsStep on the same card")
+        prev_ptr = prev.out.data_ptr()
+    runs_ptr = ws.runs[slot].data_ptr() if slot >= 0 else None
+    return prev_ptr, runs_ptr
+
+
+def iteration_counts(device) -> tuple:
+    """(launched, run): (MAX_SLOTS,) int64 arrays of the IRLS steps enqueued
+    with each level slot since ``reset_iteration_counts``, and of those that
+    ran rather than exiting early. On a card the second is a host read of
+    the workspace (a sync): for checks and measurements, never per frame."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        runs = workspace(dev).runs.cpu().numpy().astype(np.int64)
+    else:
+        runs = _CPU_RUNS.copy()
+    return _LAUNCHED.copy(), runs
+
+
+def reset_iteration_counts(device) -> None:
+    _LAUNCHED[:] = 0
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        workspace(dev).runs.zero_()
+    else:
+        _CPU_RUNS[:] = 0
+
+
+_PLANE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _plane_types(kf_int, kf_points, cur_stack) -> int:
+    """The launch's plane-type code: bit 0 the template intensity is
+    bfloat16, bit 1 the points, bit 2 the current stack. The kernels have
+    no instantiation for a bfloat16 intensity with float32 points."""
+    for t in (kf_int, *kf_points, cur_stack):
+        if t.dtype not in _PLANE_DTYPES:
+            raise TypeError(f"ESM planes must be float32 or bfloat16, got {t.dtype}")
+    if len({p.dtype for p in kf_points}) != 1:
+        raise TypeError("the three point planes must share one dtype")
+    bf = torch.bfloat16
+    code = (int(kf_int.dtype == bf) | int(kf_points[0].dtype == bf) << 1
+            | int(cur_stack.dtype == bf) << 2)
+    if code & 1 and not code & 2:
+        raise TypeError("no ESM kernel takes a bfloat16 template intensity with float32 points")
+    return code
 
 
 def _device_kind(T: torch.Tensor, what: str) -> str:
@@ -166,7 +263,7 @@ def _device_kind(T: torch.Tensor, what: str) -> str:
 
 
 def _esm_params(n, cur_stack, intr: Intrinsics, nu, use_geometric, gate_sigmas, occlusion_gate,
-                gate_cap=0.0, damping=0.0):
+                gate_cap=0.0, damping=0.0, tol=0.0):
     _, h, w = cur_stack.shape
     return _build.EsmParams(
         n=n, h=h, w=w, use_geometric=int(bool(use_geometric)),
@@ -174,44 +271,59 @@ def _esm_params(n, cur_stack, intr: Intrinsics, nu, use_geometric, gate_sigmas, 
         fx=intr.fx, fy=intr.fy, cx=intr.cx, cy=intr.cy,
         nu=nu, nu1=nu + 1.0, gate2=gate_sigmas**2,
         occ_a=(2.0 * gate_sigmas) ** 2, occ_b=0.05**2, cap2=gate_cap * gate_cap,
-        umax=w - 1.001, vmax=h - 1.001, damping=damping,
+        umax=w - 1.001, vmax=h - 1.001, damping=damping, tol=tol,
     )
 
 
-def _esm_cuda(
-    T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr: Intrinsics, nu,
-    sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate, gate_cap, damping,
-) -> IrlsStep:
+def _esm_check(T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, sigma2_int, sigma2_xi,
+               xi=None) -> int:
+    """Check an ESM launch's arguments; returns the plane-type code."""
     dev = T.device
     th, tw = kf_int.shape
     c = cur_stack.shape[0]
     if c not in (3, 5, 7):
         raise ValueError(f"current stack must have 3, 5 or 7 planes, got {c}")
-    Px, Py, Pz = kf_points
+    types = _plane_types(kf_int, kf_points, cur_stack)
     require = _build.require
     require(T, "T", dev, (4, 4))
-    for name, t in (("kf_int", kf_int), ("Px", Px), ("Py", Py), ("Pz", Pz),
-                    ("kf_mask", kf_mask)):
-        require(t, name, dev, (th, tw))
+    for name, t in (("kf_int", kf_int), ("Px", kf_points[0]), ("Py", kf_points[1]),
+                    ("Pz", kf_points[2])):
+        require(t, name, dev, (th, tw), dtypes=_PLANE_DTYPES)
+    require(kf_mask, "kf_mask", dev, (th, tw))
+    if xi is not None:
+        require(xi, "xi", dev, (th, tw))
     require(kf_grads, "kf_grads", dev, (4, th, tw))
-    require(cur_stack, "cur_stack", dev)
+    require(cur_stack, "cur_stack", dev, dtypes=_PLANE_DTYPES)
     require(sigma2_int, "sigma2_int", dev, ())
     require(sigma2_xi, "sigma2_xi", dev, ())
+    return types
 
+
+def _esm_cuda(
+    T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr: Intrinsics, nu,
+    sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate, gate_cap, damping,
+    prev=None, tol=0.0, slot=-1,
+) -> IrlsStep:
+    dev = T.device
+    types = _esm_check(T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, sigma2_int, sigma2_xi)
+    Px, Py, Pz = kf_points
     lib = _build.library()
     ws = workspace(dev)
+    prev_ptr, runs_ptr = _exit_args(prev, tol, slot, ws)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
-    p = _esm_params(th * tw, cur_stack, intr, nu, use_geometric, gate_sigmas, occlusion_gate,
-                    gate_cap, damping)
+    p = _esm_params(kf_int.numel(), cur_stack, intr, nu, use_geometric, gate_sigmas,
+                    occlusion_gate, gate_cap, damping, tol)
     status = lib.esm_irls_launch(
-        p, c, ws.max_blocks, T.data_ptr(), sigma2_int.data_ptr(), sigma2_xi.data_ptr(),
-        kf_int.data_ptr(), Px.data_ptr(), Py.data_ptr(), Pz.data_ptr(), kf_mask.data_ptr(),
-        kf_grads.data_ptr(), cur_stack.data_ptr(), ws.partials.data_ptr(),
-        ws.counter.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        p, cur_stack.shape[0], types, ws.max_blocks, T.data_ptr(), sigma2_int.data_ptr(),
+        sigma2_xi.data_ptr(), kf_int.data_ptr(), Px.data_ptr(), Py.data_ptr(), Pz.data_ptr(),
+        kf_mask.data_ptr(), kf_grads.data_ptr(), cur_stack.data_ptr(), ws.partials.data_ptr(),
+        ws.counter.data_ptr(), out.data_ptr(), prev_ptr, runs_ptr,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "esm_irls_launch")
     owner = getattr(_COUNT, "owner", None) or esm_residuals_and_normal_eq
     owner.launches += 1
+    _count_slot(slot)
     return _irls_step(out)
 
 
@@ -232,16 +344,26 @@ def esm_irls_step(
     gate_cap: float = 0.0,
     *,
     damping: float,
+    prev: Optional[IrlsStep] = None,
+    tol: float = 0.0,
+    slot: int = -1,
 ) -> IrlsStep:
     """One ESM IRLS iteration: the evaluation of
     ``esm_residuals_and_normal_eq`` at ``T``, then ``ic_update`` with
-    ``damping``. CPU runs the plain versions; CUDA one kernel launch that
-    reads nothing back to the host."""
+    ``damping``; skipped (the step is ``prev``) under the early exit, see
+    the module docstring; counted in ``slot`` when it is >= 0. CPU runs the
+    plain versions; CUDA one kernel launch that reads nothing back to the
+    host."""
     args = (T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu,
             sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate, gate_cap)
     if _device_kind(T, "ESM") == "cpu":
+        _count_slot(slot)
+        if _cpu_skips(prev, tol):
+            return prev
+        if slot >= 0:
+            _CPU_RUNS[slot] += 1
         return _plain_step(T, esm_residuals_and_normal_eq_plain(*args), damping)
-    return _esm_cuda(*args, damping)
+    return _esm_cuda(*args, damping, prev, tol, slot)
 
 
 def esm_residuals_and_normal_eq(
@@ -264,9 +386,11 @@ def esm_residuals_and_normal_eq(
 
     The device of ``T`` decides: CPU runs the plain version, CUDA the
     kernel (the launch of ``esm_irls_step``; its pose update is dropped).
-    On CUDA every plane must be a contiguous float32 tensor on the same
-    card: the template planes (Ht, Wt), ``kf_grads`` (4, Ht, Wt), the
-    current stack (3|5|7, H, W), and the sigmas as 0-d tensors."""
+    On CUDA every plane must be a contiguous tensor on the same card: the
+    template planes (Ht, Wt), ``kf_grads`` (4, Ht, Wt), the current stack
+    (3|5|7, H, W), and the sigmas as 0-d tensors; all float32 but the
+    intensity, the points and the stack, which may be bfloat16
+    (``_plane_types``)."""
     args = (T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu,
             sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate, gate_cap)
     if _device_kind(T, "ESM") == "cpu":
@@ -285,30 +409,22 @@ def _stratified_cuda(T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr: I
                      sigma2_int, sigma2_xi, xi, edges, use_geometric, gate_sigmas,
                      occlusion_gate) -> torch.Tensor:
     dev = T.device
-    th, tw = kf_int.shape
-    c = cur_stack.shape[0]
     k = len(edges) - 1
-    if c not in (3, 5, 7):
-        raise ValueError(f"current stack must have 3, 5 or 7 planes, got {c}")
     if not 1 <= k <= _build.MAX_STRATA:
         raise ValueError(f"{k} strata: the kernel takes 1 to {_build.MAX_STRATA}")
+    types = _esm_check(T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, sigma2_int, sigma2_xi,
+                       xi)
+    if types & 1:
+        raise TypeError("the stratified kernel takes a float32 template intensity, got bfloat16")
     Px, Py, Pz = kf_points
-    require = _build.require
-    require(T, "T", dev, (4, 4))
-    for name, t in (("kf_int", kf_int), ("Px", Px), ("Py", Py), ("Pz", Pz),
-                    ("kf_mask", kf_mask), ("xi", xi)):
-        require(t, name, dev, (th, tw))
-    require(kf_grads, "kf_grads", dev, (4, th, tw))
-    require(cur_stack, "cur_stack", dev)
-    require(sigma2_int, "sigma2_int", dev, ())
-    require(sigma2_xi, "sigma2_xi", dev, ())
     sp = _build.StrataParams(k=k)
     sp.edges[: k + 1] = [float(e) for e in edges]
     ws = workspace(dev)
     out = torch.empty((k, STRATIFIED_SUMS), dtype=torch.float32, device=dev)
     status = _build.library().esm_stratified_launch(
-        _esm_params(th * tw, cur_stack, intr, nu, use_geometric, gate_sigmas, occlusion_gate),
-        sp, c, ws.strata_partials.shape[0], T.data_ptr(),
+        _esm_params(kf_int.numel(), cur_stack, intr, nu, use_geometric, gate_sigmas,
+                    occlusion_gate),
+        sp, cur_stack.shape[0], types, ws.strata_partials.shape[0], T.data_ptr(),
         sigma2_int.data_ptr(), sigma2_xi.data_ptr(), kf_int.data_ptr(), Px.data_ptr(),
         Py.data_ptr(), Pz.data_ptr(), kf_mask.data_ptr(), kf_grads.data_ptr(),
         cur_stack.data_ptr(), xi.data_ptr(), ws.strata_partials.data_ptr(),
@@ -341,7 +457,8 @@ def esm_stratified(
     with the strata from the template inverse depth ``xi`` against the
     K+1 float32 host ``edges``. CPU runs the plain version
     (``stratified_sums`` on the one-hot strata); CUDA one launch, with the
-    layouts of ``esm_residuals_and_normal_eq`` and ``xi`` (Ht, Wt)."""
+    layouts of ``esm_residuals_and_normal_eq`` and ``xi`` (Ht, Wt); the
+    points and the stack may be bfloat16, the intensity is float32."""
     if _device_kind(T, "stratified ESM") == "cpu":
         from ..tracking.consensus import stratum_onehot
 
@@ -378,13 +495,14 @@ def _ic_check(T, kf_int, kf_points, kf_mask, cur_int, cur_xi, cur_mask, sigma2_i
     require(sigma2_xi, "sigma2_xi", dev, ())
 
 
-def _ic_params(n: int, cur_int, intr: Intrinsics, nu, gate_sigmas, use_geometric, damping=0.0):
+def _ic_params(n: int, cur_int, intr: Intrinsics, nu, gate_sigmas, use_geometric, damping=0.0,
+               tol=0.0):
     h, w = cur_int.shape
     return _build.IcParams(
         n=n, h=h, w=w, use_geometric=int(bool(use_geometric)),
         fx=intr.fx, fy=intr.fy, cx=intr.cx, cy=intr.cy,
         nu=nu, nu1=nu + 1.0, gate2=gate_sigmas**2, umax=w - 1.001, vmax=h - 1.001,
-        damping=damping,
+        damping=damping, tol=tol,
     )
 
 
@@ -410,41 +528,45 @@ def _ic_sigma_cuda(T, kf_int, kf_points, kf_mask, cur_int, cur_xi, cur_mask, int
 
 def _ic_normal_cuda(T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask, intr, nu,
                     sigma2_int, sigma2_xi, use_geometric, gate_sigmas, lagged, damping,
-                    sigma_steps: int = 0) -> IrlsStep:
+                    sigma_steps: int = 0, prev=None, tol=0.0, slot=-1) -> IrlsStep:
     """One launch: ``sigma_steps`` scale phases (exact mode, a cooperative
-    launch) or none, then the normal pass, the solve and the pose update."""
+    launch) or none, then the normal pass, the solve and the pose update;
+    or, under the early exit, a copy of ``prev``'s output."""
     _ic_check(T, kf_int, kf_points, kf_mask, cur_int, cur_xi, cur_mask, sigma2_int, sigma2_xi)
     dev = T.device
     _build.require(jac12, "jac12", dev, (12,) + tuple(kf_int.shape))
     n = kf_int.numel()
     ws = workspace(dev)
+    prev_ptr, runs_ptr = _exit_args(prev, tol, slot, ws)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
     Px, Py, Pz = kf_points
     status = _build.library().ic_irls_launch(
-        _ic_params(n, cur_int, intr, nu, gate_sigmas, use_geometric, damping),
+        _ic_params(n, cur_int, intr, nu, gate_sigmas, use_geometric, damping, tol),
         int(bool(lagged)), sigma_steps, ws.max_blocks,
         T.data_ptr(), sigma2_int.data_ptr(), sigma2_xi.data_ptr(), kf_int.data_ptr(),
         Px.data_ptr(), Py.data_ptr(), Pz.data_ptr(), kf_mask.data_ptr(), jac12.data_ptr(),
         cur_int.data_ptr(), cur_xi.data_ptr(), cur_mask.data_ptr(), ws.partials.data_ptr(),
-        ws.sigma_rows.data_ptr(), ws.counter.data_ptr(), out.data_ptr(),
+        ws.sigma_rows.data_ptr(), ws.counter.data_ptr(), out.data_ptr(), prev_ptr, runs_ptr,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "ic_irls_launch")
     ic_normal_eq.launches += 1
     ic_normal_eq.sigma_phases += sigma_steps
+    _count_slot(slot)
     return _irls_step(out)
 
 
 def _ic_chain_cuda(T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask, intr, nu,
                    sigma2_int, sigma2_xi, sigma_iters, use_geometric, gate_sigmas, sigma_mode,
-                   damping) -> IrlsStep:
+                   damping, prev=None, tol=0.0, slot=-1) -> IrlsStep:
     """One launch in either mode; exact mode runs ``max(sigma_iters, 1)``
     scale phases inside it, each weighting with the scales the previous one
     produced, and the normal pass weights with the last."""
     exact = sigma_mode == "exact"
     return _ic_normal_cuda(T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask,
                            intr, nu, sigma2_int, sigma2_xi, use_geometric, gate_sigmas,
-                           not exact, damping, max(sigma_iters, 1) if exact else 0)
+                           not exact, damping, max(sigma_iters, 1) if exact else 0, prev, tol,
+                           slot)
 
 
 def ic_sigma_stats(
@@ -548,17 +670,26 @@ def ic_irls_step(
     sigma_mode: str = "exact",
     *,
     damping: float,
+    prev: Optional[IrlsStep] = None,
+    tol: float = 0.0,
+    slot: int = -1,
 ) -> IrlsStep:
     """One IC IRLS iteration: the evaluation of ``residuals_and_normal_eq``
-    at ``T``, then ``ic_update`` with ``damping``. CPU runs the plain
+    at ``T``, then ``ic_update`` with ``damping``; skipped under the early
+    exit and counted in ``slot`` as ``esm_irls_step``. CPU runs the plain
     versions; CUDA one launch in either sigma mode (exact mode runs its
     ``max(sigma_iters, 1)`` scale steps inside it), reading nothing back to
     the host."""
     args = (T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask, intr, nu,
             sigma2_int, sigma2_xi, sigma_iters, use_geometric, gate_sigmas, sigma_mode)
     if _device_kind(T, "IC") == "cpu":
+        _count_slot(slot)
+        if _cpu_skips(prev, tol):
+            return prev
+        if slot >= 0:
+            _CPU_RUNS[slot] += 1
         return _plain_step(T, residuals_and_normal_eq_plain(*args), damping)
-    return _ic_chain_cuda(*args, damping)
+    return _ic_chain_cuda(*args, damping, prev, tol, slot)
 
 
 ic_sigma_stats.launches = 0

@@ -81,15 +81,16 @@ def _corner_weights(u, v, h: int, w: int):
 
 def sample_stack7(stack: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     """Sample a (C, H, W) stack at (u, v): bilinear blend for every channel
-    and the exact all-4-corners product of channel 2 (the {0,1} mask).
+    and the exact all-4-corners product of channel 2 (the {0,1} mask). A
+    bfloat16 stack's corners are widened to float32 before any arithmetic.
 
-    Returns (blend (C, *u.shape), mask_ok, inb)."""
+    Returns (blend (C, *u.shape), mask_ok, inb), float32."""
     c, h, w = stack.shape
     inb, u0, v0, u1, v1, fu, fv = _corner_weights(u, v, h, w)
     flat = stack.reshape(c, h * w)
 
     def corner(vi, ui):
-        return flat[:, (vi * w + ui).reshape(-1)].reshape((c,) + u.shape)
+        return flat[:, (vi * w + ui).reshape(-1)].reshape((c,) + u.shape).float()
 
     s00, s01, s10, s11 = corner(v0, u0), corner(v0, u1), corner(v1, u0), corner(v1, u1)
     w00 = (1 - fu) * (1 - fv)

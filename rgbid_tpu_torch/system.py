@@ -32,20 +32,16 @@ from .tracking.tracker import check_tracking_supported
 
 def check_supported(cfg: SlamConfig) -> None:
     """Raise NotImplementedError for a setting this port does not run yet,
-    naming the ROADMAP item that brings it.
+    naming the ROADMAP item that brings it, and ValueError for a tracking
+    setting it refuses (``check_tracking_supported``).
 
     ``tracking.kernel``, ``fusion.kernel`` and ``tracking.stacked_gather``
     are accepted and ignored: the tensor's device picks the kernel or its
-    plain version, and the CUDA kernels gather per thread. The tracking
-    rows are ``check_tracking_supported``'s."""
+    plain version, and the CUDA kernels gather per thread."""
     check_tracking_supported(cfg.tracking)
-    unsupported = [
-        (cfg.depth_codec != "u16", f"depth_codec={cfg.depth_codec!r}", "ROADMAP Queue 1 #7"),
-        (cfg.viz.enabled, "viz.enabled=True", "ROADMAP Queue 1 #8"),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(f"rgbid_tpu_torch does not run {what} yet ({item})")
+    if cfg.viz.enabled:
+        raise NotImplementedError("rgbid_tpu_torch does not run viz.enabled=True yet "
+                                  "(ROADMAP Queue 1 #8)")
 
 
 def _resolve_device(device) -> torch.device:
@@ -112,6 +108,8 @@ class SlamSystem:
         return self.manager.active.T_wk
 
     def _upload(self, packed_u8: np.ndarray) -> torch.Tensor:
+        """The packed frame on the device, in any codec's shape: (3, H, W),
+        (H, 5W/2) or (3H/2, W); ``decode_frame`` is its only reader."""
         t = torch.from_numpy(packed_u8)
         if self.device.type == "cuda":
             # Pinned + non_blocking: a pageable copy would synchronize.

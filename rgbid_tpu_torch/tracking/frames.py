@@ -1,7 +1,9 @@
 """Frame and keyframe pyramids (NamedTuples of device tensors).
 
-Counterpart of ``rgbid_tpu/tracking/frames.py:19-160`` with float32 planes
-(the JAX package's ``plane_dtype`` is not ported; ROADMAP Queue 1 #7).
+Counterpart of ``rgbid_tpu/tracking/frames.py:19-160``. The ESM gather
+stack is stored in ``plane_dtype`` (float32, or bfloat16 under
+``TrackingConfig.plane_dtype`` "bf16" / "bf16-stack"); every other plane is
+float32.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ class FrameLevel(NamedTuple):
     # ESM mode only, the sampling stack: (7, H, W) [I, xi, mask, gxI, gyI,
     # gxXi, gyXi] at levels >= esm_geo_min_level, (5, H, W) [I, xi, mask,
     # gxI, gyI] at esm_min_level <= level < esm_geo_min_level, (3, H, W)
-    # [I, xi, mask] below esm_min_level. None in IC mode.
+    # [I, xi, mask] below esm_min_level; float32 or bfloat16 (the planes
+    # rounded to nearest even). None in IC mode.
     stack7: Optional[torch.Tensor] = None
 
 
@@ -48,15 +51,18 @@ def preprocess_frame(
     esm: bool = False,
     esm_min_level: int = 0,
     esm_geo_min_level: int = 0,
+    plane_dtype: torch.dtype = torch.float32,
 ) -> Tuple[FrameLevel, ...]:
     """Raw sensor planes -> intensity/inverse-depth pyramids on the tensors'
     device: ``rgb_u8`` (H, W, 3) uint8, ``depth_u16`` (H, W) raw depth in any
     integer dtype. Pass the config's ``esm_min_level``/``esm_geo_min_level``
     for the production ESM layout; the defaults (0) give the 7-plane stack
-    at every ESM level, as the JAX function's do."""
+    at every ESM level, as the JAX function's do. ``plane_dtype`` is the
+    ESM stack's storage type."""
     intensity = image.intensity_from_rgb(rgb_u8)
     xi, mask = image.inverse_depth_from_u16(depth_u16, depth_scale, min_depth, max_depth)
-    return preprocess_planes(intensity, xi, mask, levels, esm, esm_min_level, esm_geo_min_level)
+    return preprocess_planes(intensity, xi, mask, levels, esm, esm_min_level, esm_geo_min_level,
+                             plane_dtype)
 
 
 def preprocess_planes(
@@ -67,9 +73,11 @@ def preprocess_planes(
     esm: bool = False,
     esm_min_level: int = 0,
     esm_geo_min_level: int = 0,
+    plane_dtype: torch.dtype = torch.float32,
 ) -> Tuple[FrameLevel, ...]:
     """Intensity/inverse-depth pyramids from the level-0 planes, plus the
-    per-level ESM stacks when ``esm`` (IC mode builds no gradient planes)."""
+    per-level ESM stacks when ``esm``, stored in ``plane_dtype`` (IC mode
+    builds no gradient planes and no stack)."""
     ints = image.build_pyramid_unmasked(intensity, levels)
     xis, masks = image.build_pyramid(xi, mask, levels)
     out = []
@@ -85,7 +93,7 @@ def preprocess_planes(
                     planes = [ints[l], xis[l], masks[l], gx_i, gy_i]
             else:
                 planes = [ints[l], xis[l], masks[l]]
-            stack7 = torch.stack(planes)
+            stack7 = torch.stack(planes).to(plane_dtype)
         out.append(FrameLevel(ints[l], xis[l], masks[l], stack7))
     return tuple(out)
 

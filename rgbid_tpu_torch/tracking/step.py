@@ -1,6 +1,7 @@
 """The per-frame program: decode, preprocess, track, decide, fuse or found.
 
-Counterpart of ``rgbid_tpu/tracking/step.py:42-327, 330-571, 585-647``.
+Counterpart of ``rgbid_tpu/tracking/step.py:42-327, 330-571, 585-647``,
+the three upload codecs ("u16", "u12", "u16h") included.
 The JAX package keeps the keep/switch/lost choice and the fusion cadence
 on the device (``lax.switch``, ``lax.cond``) so that a whole flight of
 frames runs without a host read. Here they are Python branches: after
@@ -26,7 +27,7 @@ from ..mapping.fusion import fuse_frame
 from ..mapping.keyframe import DeviceKeyframe, create_device_keyframe, rebuild_after_fusion
 from ..ops import image
 from .frames import preprocess_planes
-from .tracker import TrackResult, track
+from .tracker import TrackResult, plane_dtypes, track
 
 
 class MotionState(NamedTuple):
@@ -124,28 +125,126 @@ def gray_from_rgb(rgb_u8: np.ndarray) -> np.ndarray:
     )
 
 
+_U12_LUTS: dict = {}
+
+
+def _u12_lut(depth_scale: float, min_depth: float, max_depth: float) -> np.ndarray:
+    """Raw u16 depth -> 12-bit inverse-depth code (65536 entries, cached).
+    Code 0 = invalid. Validity uses the float32 arithmetic of the u16
+    path (``image.inverse_depth_from_u16``: f32(raw) * f32(1 / scale),
+    strict f32 compares), so both codecs give the same mask for every
+    (scale, min, max); the code itself is computed in float64, as the JAX
+    package computes it."""
+    key = (depth_scale, min_depth, max_depth)
+    lut = _U12_LUTS.get(key)
+    if lut is None:
+        raw = np.arange(65536, dtype=np.float64)
+        xi = depth_scale / np.maximum(raw, 1.0)
+        xi_min, xi_max = 1.0 / max_depth, 1.0 / min_depth
+        step = (xi_max - xi_min) / 4094.0
+        code = np.rint((xi - xi_min) / step).astype(np.int64) + 1
+        d32 = raw.astype(np.float32) * np.float32(1.0 / depth_scale)
+        valid = (d32 > np.float32(min_depth)) & (d32 < np.float32(max_depth))
+        lut = np.where(valid, np.clip(code, 1, 4095), 0).astype(np.uint16)
+        _U12_LUTS[key] = lut
+    return lut
+
+
 def pack_frame(rgb_u8: np.ndarray, depth_u16: np.ndarray, cfg=None) -> np.ndarray:
-    """Host side: gray u8 + depth into one (3, H, W) u8 upload buffer
-    [gray, depth lo-byte, depth hi-byte] (the "u16" codec)."""
-    if cfg is not None and cfg.depth_codec != "u16":
-        raise NotImplementedError(
-            f"depth_codec={cfg.depth_codec!r}: only 'u16' is ported (ROADMAP Queue 1 #7)"
-        )
+    """Host side: gray u8 + depth into one u8 upload buffer, by
+    ``cfg.depth_codec`` (None: "u16"):
+
+    - "u16": (3, H, W) [gray, depth lo-byte, depth hi-byte], exact;
+    - "u12": (H, W + 3W/2), each row the gray row, then the row's 12-bit
+      inverse-depth codes (``_u12_lut``) bit-packed 2 px -> 3 B; W even;
+    - "u16h": (3H/2, W), the gray image, then the raw depth decimated at
+      stride 2 (real sensor values, no averaging) as its bytes; H and W
+      even. The device rebuilds full-resolution inverse depth with
+      ``image.upsample2x_renorm``.
+    """
     h, w = depth_u16.shape
+    gray = gray_from_rgb(rgb_u8)
+    codec = "u16" if cfg is None else cfg.depth_codec
+    if codec == "u12":
+        if w % 2:
+            raise ValueError(f"depth_codec='u12' needs an even width, got {w}")
+        code = _u12_lut(cfg.depth_scale, cfg.min_depth, cfg.max_depth)[depth_u16]
+        v = code.reshape(h, w // 2, 2)
+        v0, v1 = v[..., 0], v[..., 1]
+        trip = np.empty((h, w // 2, 3), np.uint8)
+        trip[..., 0] = v0 >> 4
+        trip[..., 1] = ((v0 & 0xF) << 4) | (v1 >> 8)
+        trip[..., 2] = v1 & 0xFF
+        out = np.empty((h, w + (3 * w) // 2), np.uint8)
+        out[:, :w] = gray
+        out[:, w:] = trip.reshape(h, (3 * w) // 2)
+        return out
+    if codec == "u16h":
+        if h % 2 or w % 2:
+            raise ValueError(f"depth_codec='u16h' needs an even height and width, got {h}x{w}")
+        out = np.empty((h + h // 2, w), np.uint8)
+        out[:h] = gray
+        out[h:] = np.ascontiguousarray(depth_u16[::2, ::2]).view(np.uint8).reshape(h // 2, w)
+        return out
     d8 = np.ascontiguousarray(depth_u16).view(np.uint8).reshape(h, w, 2)
     out = np.empty((3, h, w), np.uint8)
-    out[0] = gray_from_rgb(rgb_u8)
+    out[0] = gray
     out[1] = d8[..., 0]
     out[2] = d8[..., 1]
     return out
 
 
 def decode_frame(packed_u8: torch.Tensor, cfg):
-    """Device side: packed (3, H, W) u8 upload -> (gray u8, xi, mask)."""
-    if packed_u8.dim() != 3 or packed_u8.shape[0] != 3:
+    """Device side: a packed upload -> (gray u8, xi, mask), by
+    ``cfg.depth_codec``. Plain PyTorch ops, as the JAX package's decode is
+    XLA. u12 rebuilds xi from its code with no divide; u16h decodes the
+    half-resolution raw depth like u16, then upsamples. A buffer packed
+    with another codec raises ValueError (its shape tells)."""
+    shape = tuple(packed_u8.shape)
+    if cfg.depth_codec == "u12":
+        if packed_u8.dim() != 2 or shape[1] % 5 != 0:
+            raise ValueError(
+                f"depth_codec='u12' expects a (H, 5*W/2) packed buffer from "
+                f"pack_frame(..., cfg) with the same codec; got shape {shape}. (A "
+                f"(3, H, W) buffer means the frame was packed with the 'u16' codec.)"
+            )
+        h, w = shape[0], (shape[1] * 2) // 5
+        gray = packed_u8[:, :w]
+        trip = packed_u8[:, w:].reshape(h, w // 2, 3).to(torch.int32)
+        b0, b1, b2 = trip[..., 0], trip[..., 1], trip[..., 2]
+        v0 = (b0 << 4) | (b1 >> 4)
+        v1 = ((b1 & 0xF) << 8) | b2
+        code = torch.stack([v0, v1], -1).reshape(h, w)
+        xi_min, xi_max = 1.0 / cfg.max_depth, 1.0 / cfg.min_depth
+        step = (xi_max - xi_min) / 4094.0
+        mask = (code > 0).to(torch.float32)
+        xi = ((code.to(torch.float32) - 1.0) * step + xi_min) * mask
+        return gray, xi, mask
+    if cfg.depth_codec == "u16h":
+        # An even width as well as rows divisible by 3: a (H, 5W/2) u12
+        # buffer then passes only when W % 4 == 0 and H % 3 == 0 (the JAX
+        # package's check).
+        if packed_u8.dim() != 2 or shape[0] % 3 != 0 or shape[1] % 2 != 0:
+            raise ValueError(
+                f"depth_codec='u16h' expects a (3H/2, W) packed buffer (W even) from "
+                f"pack_frame(..., cfg) with the same codec; got shape {shape}. (A (3, H, W) "
+                f"buffer means the frame was packed with the 'u16' codec; a (H, 5W/2) one "
+                f"with 'u12'.)"
+            )
+        h = (shape[0] * 2) // 3
+        gray = packed_u8[:h]
+        d8 = packed_u8[h:]
+        d16 = d8[:, 0::2].to(torch.int32) | (d8[:, 1::2].to(torch.int32) << 8)
+        xi_h, mask_h = image.inverse_depth_from_u16(d16, cfg.depth_scale, cfg.min_depth,
+                                                    cfg.max_depth)
+        xi, mask = image.upsample2x_renorm(xi_h, mask_h)
+        return gray, xi, mask
+    if packed_u8.dim() != 3 or shape[0] != 3:
         raise ValueError(
-            f"depth_codec='u16' expects a (3, H, W) packed buffer "
-            f"[gray, depth-lo, depth-hi]; got shape {tuple(packed_u8.shape)}"
+            f"depth_codec='u16' expects a (3, H, W) packed buffer [gray, depth-lo, "
+            f"depth-hi]; got shape {shape}. (A 2-D buffer means the frame was packed "
+            f"with the 'u12' or 'u16h' codec: pass the same cfg to pack_frame and "
+            f"SlamSystem.)"
         )
     gray = packed_u8[0]
     d16 = packed_u8[1].to(torch.int32) | (packed_u8[2].to(torch.int32) << 8)
@@ -159,7 +258,7 @@ def frame_pyramid(packed_u8: torch.Tensor, cfg):
     intensity = gray.to(torch.float32) * (1.0 / 255.0)
     return preprocess_planes(
         intensity, xi, mask, tcfg.levels, tcfg.jacobian == "esm", tcfg.esm_min_level,
-        tcfg.esm_geo_min_level,
+        tcfg.esm_geo_min_level, plane_dtypes(tcfg)[0],
     )
 
 

@@ -16,7 +16,18 @@ The IRLS loop is a Python loop over ``cfg.iters``. Each iteration is one
 call of ``esm_irls_step`` or ``ic_irls_step``: on the card, one kernel
 launch that evaluates, solves and updates the pose (IC exact mode runs its
 scale steps inside it), and no other op; nothing in the loop reads a device
-value back to the host.
+value back to the host. Under ``early_exit_tol`` or ``conv_skip_tol`` (one
+mechanism here: the JAX package's ``while_loop`` and its ``cond`` inside
+the ``fori_loop`` carry the same state) each iteration gets the previous
+one's step and the tolerance, and an iteration after a step of norm <= tol
+is skipped on the device (ops/kernels.py); the host still enqueues the whole
+budget, so ``cfg.iters`` are budgets and the launch counts do not change.
+
+``plane_dtype`` (ESM only, as in the JAX package): under "bf16" and
+"bf16-points" the backprojected template points, and for the IRLS loop the
+template intensity, are stored bfloat16; the vote and the rescue's
+level-0 evidence read the float32 intensity with those points. The stack's
+type comes from the frame (tracking/frames.py; "bf16" and "bf16-stack").
 
 The consensus branches on the host where the JAX package uses
 ``lax.cond``. A vote is one ``esm_stratified`` launch and one read of its
@@ -47,17 +58,26 @@ from .frames import FrameLevel, KeyframeLevel
 _F32 = np.float32
 
 
+PLANE_DTYPES = ("f32", "bf16", "bf16-stack", "bf16-points")
+
+
 def check_tracking_supported(t) -> None:
-    """Raise NotImplementedError for a TrackingConfig setting this port does
-    not run yet, naming the ROADMAP item that brings it."""
-    unsupported = [
-        (t.plane_dtype != "f32", f"tracking.plane_dtype={t.plane_dtype!r}", "ROADMAP Queue 1 #7"),
-        (t.early_exit_tol > 0, "tracking.early_exit_tol > 0", "ROADMAP Queue 1 #7"),
-        (t.conv_skip_tol > 0, "tracking.conv_skip_tol > 0", "ROADMAP Queue 1 #7"),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(f"rgbid_tpu_torch does not run {what} yet ({item})")
+    """Raise for a TrackingConfig setting this port refuses: a
+    ``plane_dtype`` outside ``PLANE_DTYPES`` (ValueError; the JAX package
+    runs any other string as "f32")."""
+    if t.plane_dtype not in PLANE_DTYPES:
+        raise ValueError(f"tracking.plane_dtype={t.plane_dtype!r}: expected one of {PLANE_DTYPES}")
+
+
+def plane_dtypes(t):
+    """(stack dtype, template-plane dtype) of ``t.plane_dtype``: the frame's
+    ESM gather stack is bfloat16 under "bf16" and "bf16-stack", the ESM
+    template's points and intensity under "bf16" and "bf16-points"."""
+    check_tracking_supported(t)
+    bf, f32 = torch.bfloat16, torch.float32
+    return (bf if t.plane_dtype in ("bf16", "bf16-stack") else f32,
+            bf if t.plane_dtype in ("bf16", "bf16-points") else f32)
+
 
 
 def _apply_affine_illumination(
@@ -175,6 +195,8 @@ class _Pyramid:
     def __init__(self, kf, cur, intrs, cfg, jac_dtype, dev):
         self.cfg, self.cur, self.intrs = cfg, cur, intrs
         self.esm = cfg.jacobian == "esm"
+        # One early exit for both knobs (0: every iteration runs).
+        self.tol = cfg.early_exit_tol if cfg.early_exit_tol > 0 else cfg.conv_skip_tol
         self.s2i0 = torch.full((), cfg.init_sigma_int**2, dtype=torch.float32, device=dev)
         self.s2x0 = torch.full((), cfg.init_sigma_xi**2, dtype=torch.float32, device=dev)
         self.zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -184,6 +206,13 @@ class _Pyramid:
         strides = tuple(cfg.template_stride or ())
         strides = strides + (1,) * max(0, cfg.levels - len(strides))
         self.tmpl = [template_level(kf[l], intrs[l], strides[l]) for l in range(cfg.levels)]
+        # The IRLS loop's template intensity; tmpl keeps the float32 one
+        # (the vote and the rescue's evidence read it).
+        self.int_loop = [kl.intensity for kl, _ in self.tmpl]
+        tmpl_dtype = plane_dtypes(cfg)[1]
+        if self.esm and tmpl_dtype != torch.float32:
+            self.tmpl = [(kl, tuple(p.to(tmpl_dtype) for p in pts)) for kl, pts in self.tmpl]
+            self.int_loop = [i.to(tmpl_dtype) for i in self.int_loop]
 
     def n_iters(self, level: int) -> int:
         iters = self.cfg.iters
@@ -191,24 +220,29 @@ class _Pyramid:
 
     def run(self, level, T, s2i, s2x, H, mask):
         """One level's IRLS loop from (T, sigmas, H) with the given template
-        mask: (T, s2i, s2x, H, err, inlier_frac, n_valid)."""
+        mask: (T, s2i, s2x, H, err, inlier_frac, n_valid). Every run starts
+        with no previous step, so its first iteration always runs."""
         cfg = self.cfg
         kl, points = self.tmpl[level]
+        kf_int = self.int_loop[level]
         cl, intr_l = self.cur[level], self.intrs[level]
         gate_cap = cfg.occ_gate_cap if level <= cfg.occ_gate_cap_level else 0.0
         err = inl = nv = self.zero
+        step = None
         for _ in range(self.n_iters(level)):
             if self.esm:
                 step = esm_irls_step(
-                    T, kl.intensity, points, mask, kl.jac, cl.stack7, intr_l,
+                    T, kf_int, points, mask, kl.jac, cl.stack7, intr_l,
                     cfg.student_t_nu, s2i, s2x, cfg.use_geometric, cfg.gate_sigmas,
-                    cfg.occlusion_gate, gate_cap, damping=cfg.damping,
+                    cfg.occlusion_gate, gate_cap, damping=cfg.damping, prev=step, tol=self.tol,
+                    slot=level,
                 )
             else:
                 step = ic_irls_step(
                     T, kl.intensity, points, mask, kl.jac, cl.intensity, cl.xi, cl.mask,
                     intr_l, cfg.student_t_nu, s2i, s2x, cfg.sigma_iters, cfg.use_geometric,
-                    cfg.gate_sigmas, cfg.sigma_mode, damping=cfg.damping,
+                    cfg.gate_sigmas, cfg.sigma_mode, damping=cfg.damping, prev=step,
+                    tol=self.tol, slot=level,
                 )
             T, res = step.T, step.result
             s2i, s2x, H = res.sigma2_int, res.sigma2_xi, res.H
@@ -242,7 +276,8 @@ def track(
     read=None,
 ) -> TrackResult:
     """The production coarse-to-fine tracker (``cfg`` is a TrackingConfig;
-    ``check_tracking_supported`` lists the settings that raise).
+    ``check_tracking_supported`` lists the settings that raise; the frame's
+    stack type is the caller's, ``plane_dtypes(cfg)[0]`` on the main path).
     ``jac_dtype`` is the template's storage precision, which the ESM affine
     illumination rounds its rescaled planes to.
 
