@@ -19,7 +19,9 @@ otherwise. Phases, each printing its own lines:
    odd camera: the vote's L2 and L1 layouts, K 1 and 16, strata scrambled
    pixel by pixel with one stratum empty, and L0, where some threads take
    two pixels; analyze/decide on both sums where K is 6) are
-   held to their plain versions and rerun. The ESM kernel again with
+   held to their plain versions and rerun, and the fusion kernel again as
+   ``fuse_inverse_depth`` runs it (growth off, no pose-noise floor; the
+   mask it writes equal to its input). The ESM kernel again with
    bfloat16 planes in every mix the tracker uses (``BF16_MIXES``: the
    IRLS loop's, the vote's and the rescue evidence's under
    ``plane_dtype`` "bf16", and the two ablation splits') at every level's
@@ -127,7 +129,28 @@ otherwise. Phases, each printing its own lines:
    [codecs]: bytes, pack_frame's host ms, the upload's host ms and the
    host-to-device copy's device ms per codec.
 
-Phases 4, 8-11 and [preset] each drive the main path with the launch
+13. [tum]: the rigid sequence written as a TUM RGB-D directory with the
+   port's PNG encoder (rgb/, depth/, the two indexes with the depth stamps
+   jittered by up to 10 ms, groundtruth.txt, calibration.txt), then
+   ``python -m rgbid_tpu_torch --tum DIR --eval`` in-process on the card
+   (``SlamConfig()``, back end off): poses bit-equal to the same frames
+   through ``process_frame`` in memory (PNG is lossless), 0 lost, the ATE
+   against groundtruth.txt inside the rigid bound, the launch counts equal
+   and exact; then ``fuse_inverse_depth`` on the run's last state (one
+   fusion launch, growth off). Prints the host ms of a VGA pair's decode
+   (native and numpy unfilter, Paeth and Sub rows), of the fr1
+   undistortion, and ms/frame of --tum against the run in memory.
+14. [live]: a writer thread grows a TUM directory, 20 QVGA frames, while
+   ``LiveSource`` streams it through ``SlamSystem`` on the card: every
+   frame delivered once, in order, bit-equal, and the stream ends on its
+   idle timeout; exact launch counts.
+15. [snapshot]: back end off, the rigid sequence saved after 18 frames,
+   restored on the card and run to the end: per-frame records and poses
+   bit-equal to the uninterrupted run. Back end on, the loop sequence
+   saved after ``finish()`` and restored: loop edges and BoW entries
+   equal, no thread error after ``finish()`` on either.
+
+Phases 4, 8-11, [preset] and 13-15 each drive the main path with the launch
 counts set to 0 just before and read just after. The second-to-last line is
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Imports
 no JAX and no OpenCV: phases 4-9 render their scenes here with numpy and
@@ -144,6 +167,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -160,9 +184,10 @@ from rgbid_tpu_torch.backend.features import extract_orb
 from rgbid_tpu_torch.backend.loop_closure import loop_edge
 from rgbid_tpu_torch.backend.pose_graph import PoseGraph
 from rgbid_tpu_torch.backend.relocalization import SCORER_DAMPING, RelocScorer, mini_pyramid
-from rgbid_tpu_torch.datasets import synthetic
+from rgbid_tpu_torch.datasets import _cv, live, png, synthetic, tum
 from rgbid_tpu_torch.eval import absolute_trajectory_error, gauntlet
 from rgbid_tpu_torch.mapping import fusion
+from rgbid_tpu_torch.mapping.export import _quat_from_R
 from rgbid_tpu_torch.ops import _build, gauss_newton, kernels
 from rgbid_tpu_torch.ops.gauss_newton import ic_update
 from rgbid_tpu_torch.reference_cpu import odometry
@@ -170,6 +195,7 @@ from rgbid_tpu_torch.tracking import consensus
 from rgbid_tpu_torch.tracking.step import ProcessFrame, decode_frame, frame_pyramid, gray_from_rgb
 from rgbid_tpu_torch.tracking.step import pack_frame
 from rgbid_tpu_torch.tracking.tracker import template_level
+from rgbid_tpu_torch.utils import snapshot
 
 N_FRAMES = 36
 # ATE bound of every main-path run on the rigid sequence: max(2 x the CPU
@@ -811,6 +837,32 @@ def phase_kernels(cfg):
                   f"claims {grown} xi max|d| {e_xi:.3e} (tol 1e-6) var max|d| {e_var:.3e} "
                   f"(tol 1e-9) mask and hits equal {masks_eq}, rerun bit-identical {same} "
                   f"{'OK' if good else 'FAIL'}")
+    # fuse_inverse_depth: the same kernel with growth off and a zero pose
+    # floor (the covariance as given), against fuse_core_plain with no
+    # guess; the mask comes back as the input, and the kernel's own mask
+    # plane equals it bit for bit.
+    for size, (kf, cur, T, intrs), C in (("480x640", vga, cov),
+                                         ("641x481", odd, cov.T.contiguous().T)):
+        args = (kf.levels[0].xi, kf.var, kf.mask_full, cur[0].xi, cur[0].mask, T, C, intrs[0],
+                fcfg)
+        k, k2 = fusion.fuse_inverse_depth(*args), fusion.fuse_inverse_depth(*args)
+        p = fusion.fuse_core_plain(*args)
+        raw = fusion._fuse_frame_cuda((fusion._Level0(args[0]),), kf.var, kf.mask_full,
+                                      torch.zeros_like(kf.var), cur[0].xi, cur[0].mask, T, C,
+                                      intrs[0], fcfg, grow=False, floor=False)
+        torch.cuda.synchronize()
+        e_xi = float((k[0] - p[0]).abs().max())
+        e_var = float((k[1] - p[1]).abs().max())
+        mask_eq = k[2] is kf.mask_full and bool(torch.equal(raw[2], kf.mask_full))
+        n_eq = float(k[3]) == float(p[4])
+        same = all(torch.equal(a, b) for a, b in zip(k, k2))
+        good = mask_eq and n_eq and e_xi <= 1e-6 and e_var <= 1e-9 and same
+        ok &= good
+        fus_abs = max(fus_abs, e_xi, e_var)
+        print(f"[kernels] fuse_inverse_depth (growth off, no floor) {size}: n_fused {int(k[3])} "
+              f"(plain {int(p[4])}) xi max|d| {e_xi:.3e} (tol 1e-6) var max|d| {e_var:.3e} "
+              f"(tol 1e-9) mask returned and written equal {mask_eq}, rerun bit-identical "
+              f"{same} {'OK' if good else 'FAIL'}")
     records["fusion"] = dict(
         name="fusion", route="cuda", source="rgbid_tpu_torch/csrc/fusion.cu",
         replaces="rgbid_tpu/ops/pallas_kernels.py:294", max_abs_err=fus_abs,
@@ -826,6 +878,16 @@ def phase_kernels(cfg):
                    lambda a: fusion.fuse_frame_plain(*a), fargs,
                    FLOPS_PER_PIXEL["fusion"] * kf.levels[0].xi.numel(), "480x640, growth on",
                    reads))
+    # fuse_inverse_depth reads the five level-0 planes, the pose and the
+    # covariance, and returns xi', var' and n_fused (the mask it returns is
+    # its input; its hits and mask planes are scratch).
+    iargs = (kf.levels[0].xi, kf.var, kf.mask_full, cur[0].xi, cur[0].mask, T, cov, intrs[0],
+             fcfg)
+    timing.append(("fusion", "kalman-only 480x640",
+                   lambda a: (lambda r: (r[0], r[1], r[3]))(fusion.fuse_inverse_depth(*a)),
+                   lambda a: fusion.fuse_core_plain(*a), iargs,
+                   FLOPS_PER_PIXEL["fusion"] * kf.levels[0].xi.numel(),
+                   "480x640, fuse_inverse_depth: growth off, no floor", iargs[:7]))
     return ok, records, timing
 
 
@@ -1441,7 +1503,7 @@ def phase_times(records, timing):
     # bfloat16 layouts and the skipped launch stay in "levels".
     for rec in records.values():
         finest = [l for l in rec["levels"]
-                  if not l["level"].startswith(("reloc", "bf16", "skipped"))][-1]
+                  if not l["level"].startswith(("reloc", "bf16", "skipped", "kalman"))][-1]
         rec.update({k: v for k, v in finest.items() if k != "level"})
         rec["library_ms"] = None  # no single PyTorch call computes any of these
 
@@ -2666,6 +2728,342 @@ def phase_cli():
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# Real RGB-D data: the TUM reader, the live source and the snapshot
+
+SMOKE_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+# The backend-off snapshot is taken after this many frames of the rigid
+# sequence; the live source streams this many QVGA frames.
+SNAPSHOT_AT = 18
+LIVE_FRAMES = 20
+LIVE_IDLE_S = 1.0
+QVGA_FR1 = Intrinsics(fx=TUM_FR1.fx / 2, fy=TUM_FR1.fy / 2, cx=(TUM_FR1.cx + 0.5) / 2 - 0.5,
+                      cy=(TUM_FR1.cy + 0.5) / 2 - 0.5, width=320, height=240)
+
+
+def _zero_counts():
+    torch.cuda.synchronize()
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
+
+
+def _read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k: getattr(wrapper, attr) for k, (wrapper, attr) in COUNTERS.items()}
+
+
+def _append_tum_frame(root: str, rgb, depth, t: float, jitter: float, filt: int) -> float:
+    """One frame into a TUM directory as a capture daemon writes it: the two
+    PNGs (the port's encoder), then a line appended to each index. Returns
+    the RGB timestamp as the index gives it."""
+    tr, td = f"{t:.6f}", f"{t + jitter:.6f}"
+    png.write(os.path.join(root, "rgb", tr + ".png"), rgb, filt=filt)
+    png.write(os.path.join(root, "depth", td + ".png"), depth, filt=filt)
+    with open(os.path.join(root, "rgb.txt"), "a") as f:
+        f.write(f"{tr} rgb/{tr}.png\n")
+    with open(os.path.join(root, "depth.txt"), "a") as f:
+        f.write(f"{td} depth/{td}.png\n")
+    return float(tr)
+
+
+def _new_tum_dir(root: str) -> None:
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "depth"))
+    for name in ("rgb.txt", "depth.txt"):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("# timestamp filename\n")
+
+
+def write_tum_dir(root: str, frames, gt, intr: Intrinsics, filt: int = 1, seed: int = 0):
+    """The sequence as a TUM RGB-D directory: rgb/ and depth/ PNGs (every row
+    filtered with ``filt``; 1, Sub, is what cv2.imwrite writes), rgb.txt,
+    depth.txt with the depth timestamps jittered by up to 10 ms,
+    groundtruth.txt (t tx ty tz qx qy qz qw) and calibration.txt (no
+    distortion). Returns the RGB timestamps as the index gives them."""
+    _new_tum_dir(root)
+    jitter = np.random.default_rng(seed).uniform(0.0, 0.01, len(frames))
+    ts = [_append_tum_frame(root, rgb, depth, t, float(j), filt)
+          for (rgb, depth, t), j in zip(frames, jitter)]
+    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+        f.write("# timestamp tx ty tz qx qy qz qw\n")
+        for t, T in zip(ts, gt):
+            q = _quat_from_R(T[:3, :3])
+            f.write(f"{t:.6f} " + " ".join(f"{v:.9f}" for v in (*T[:3, 3], *q)) + "\n")
+    with open(os.path.join(root, "calibration.txt"), "w") as f:
+        f.write(f"{intr.fx} {intr.fy} {intr.cx} {intr.cy} {intr.width} {intr.height}\n")
+    return ts
+
+
+def _median_ms(fn, reps: int) -> float:
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def _reader_host_times(frames, smi: str) -> None:
+    """Host ms to decode one VGA pair (RGB + 16-bit depth) with the native
+    unfilter and with the numpy oracle, on PNGs filtered with Paeth and with
+    Sub (cv2.imwrite's choice), and of the fr1 undistortion."""
+    rgb, depth, _ = frames[0]
+    work = os.path.join(SMOKE_BUILD, "chip_smoke_png")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    for filt, name in ((4, "Paeth"), (1, "Sub")):
+        pr, pd = os.path.join(work, f"rgb{filt}.png"), os.path.join(work, f"depth{filt}.png")
+        png.write(pr, rgb, filt=filt)
+        png.write(pd, depth, filt=filt)
+        for nat, label in ((True, "native"), (False, "numpy")):
+            same = (np.array_equal(png.read_color(pr, native=nat), rgb)
+                    and np.array_equal(png.read_unchanged(pd, native=nat), depth))
+            ms = _median_ms(lambda: (png.read_color(pr, native=nat),
+                                     png.read_unchanged(pd, native=nat)), 3 if nat else 2)
+            print(f"[tum] decode of a VGA pair ({os.path.getsize(pr) + os.path.getsize(pd)} B), "
+                  f"{name} rows, {label} unfilter: {ms:.2f} host ms, lossless {same}; {smi}")
+    K = np.array([[TUM_FR1.fx, 0, TUM_FR1.cx], [0, TUM_FR1.fy, TUM_FR1.cy], [0, 0, 1]])
+    t0 = time.perf_counter()
+    m1, m2 = _cv.undistort_maps(K, tum.TUM_DISTORTION["freiburg1"], (640, 480))
+    plan = _cv.linear_plan(m1, m2, (480, 640))
+    maps_ms = (time.perf_counter() - t0) * 1e3
+    ms = _median_ms(lambda: (_cv.remap_linear_u8(rgb, m1, m2, plan),
+                             _cv.remap_nearest(depth, m1, m2)), 5)
+    print(f"[tum] fr1 undistortion of a VGA pair (bilinear RGB + nearest depth): {ms:.2f} host "
+          f"ms; maps and bilinear plan once per sequence {maps_ms:.2f} ms; {smi}")
+
+
+def phase_tum(smi: str):
+    """The command line's ``--tum`` path on the card (the module docstring,
+    item 13). Returns (ok, the launch counts of the two counted runs)."""
+    frames, gt = make_sequence()
+    root = os.path.join(SMOKE_BUILD, "chip_smoke_tum", "rgbd_dataset_smoke_rigid")
+    out_dir = os.path.join(SMOKE_BUILD, "chip_smoke_tum", "out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ts = write_tum_dir(root, frames, gt, TUM_FR1)
+    write_s = time.perf_counter() - t0
+    _zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--tum", root, "--eval", "--quiet", "--set", "backend.enabled=false",
+                       "--out-dir", out_dir])
+    cli_counts = _read_counts()
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    recs = [json.loads(line) for line in open(os.path.join(out_dir, "frames.jsonl"))]
+    recs = [r for r in recs if r["type"] == "frame"]
+    # The same frames in memory, through process_frame.
+    _zero_counts()
+    slam = port.SlamSystem(TUM_FR1, default_config(), device="cuda")
+    mem_ms = []
+    for rgb, depth, t in frames:
+        t1 = time.perf_counter()
+        slam.process_frame(rgb, depth, t)
+        torch.cuda.synchronize()
+        mem_ms.append((time.perf_counter() - t1) * 1e3)
+    mem_counts = _read_counts()
+    poses_equal = (len(recs) == len(frames) and all(
+        np.array_equal(np.asarray(r["T_wc"]), T) for r, (_, T) in zip(recs, slam.trajectory())))
+    stamps = [r["t"] for r in recs] == ts
+    # fuse_inverse_depth, the Kalman-only step, on the run's last keyframe
+    # state and last frame: one launch of the fusion kernel, growth off.
+    _zero_counts()
+    kf = slam._kf_state
+    cur = frame_pyramid(torch.from_numpy(pack_frame(*frames[-1][:2])).cuda(), slam.config)
+    cov = torch.diag(torch.tensor([4e-6, 4e-6, 9e-6, 1e-6, 1e-6, 4e-6], device=kf.var.device))
+    fid_args = (kf.levels[0].xi, kf.var, kf.mask_full, cur[0].xi, cur[0].mask,
+                slam._motion.T_ck, cov, TUM_FR1, slam.config.fusion)
+    k = fusion.fuse_inverse_depth(*fid_args)
+    fid_counts = _read_counts()
+    p = fusion.fuse_core_plain(*fid_args)
+    fid_ok = (k[2] is kf.mask_full and float(k[3]) == float(p[4]) > 0
+              and float((k[0] - p[0]).abs().max()) <= 1e-6
+              and float((k[1] - p[1]).abs().max()) <= 1e-9)
+    tracked = len(frames) - 1
+    fused = sum(r.get("n_fused", 0) > 0 for r in recs)
+    counts = slam.tracker_counts
+    expected = expected_launches(slam.config.tracking, tracked, counts["rerun_iters"],
+                                 counts["rescues"])
+    cli_ms = [r["ms"] for r in recs[5:]]
+    checks = {
+        "rc": rc == 0,
+        "frames": result["frames"] == len(frames),
+        "lost": result["lost_frames"] == 0,
+        "ate": result["ate"]["rmse"] <= ATE_BOUND_M and result["ate"]["n"] == len(frames),
+        "poses bit-equal": poses_equal,
+        "timestamps": stamps,
+        "launches": cli_counts == mem_counts
+        and all(mem_counts[k] == v for k, v in expected.items())
+        and mem_counts["fusion"] == fused >= 1,
+        "fuse_inverse_depth": fid_ok and fid_counts["fusion"] == 1
+        and sum(fid_counts.values()) == 1,
+    }
+    ok = all(checks.values())
+    print(f"[tum] --tum over the rigid sequence written as a TUM directory ({len(frames)} VGA "
+          f"pairs, Sub rows, depth stamps jittered up to 10 ms; written in {write_s:.2f} s), "
+          f"SlamConfig() back end off, on the card: frames {result['frames']}, lost "
+          f"{result['lost_frames']}, ATE against groundtruth.txt "
+          f"{result['ate']['rmse'] * 1e3:.3f} mm over {result['ate']['n']} matches (bound "
+          f"{ATE_BOUND_M * 1e3:.1f}), poses bit-equal to process_frame in memory {poses_equal}; "
+          f"launches {cli_counts} (in memory {mem_counts}; expected {expected}, fusion {fused}); "
+          f"fuse_inverse_depth on the last state: {fid_counts['fusion']} fusion launch, n_fused "
+          f"{int(k[3])}, mask returned as given {k[2] is kf.mask_full}")
+    print(f"[tum] ms/frame median over frames 5..{len(frames) - 1}: --tum {np.median(cli_ms):.2f} "
+          f"(PNG decode on the prefetch thread), in memory {np.median(mem_ms[5:]):.2f}; --tum "
+          f"wall {result['wall_s'] * 1e3 / result['frames']:.2f} ms/frame with finish(); {smi}")
+    _reader_host_times(frames, smi)
+    print(f"[tum] checks {checks} {'OK' if ok else 'FAIL'}")
+    return ok, {k: cli_counts[k] + mem_counts[k] + fid_counts[k] for k in COUNTERS}
+
+
+def phase_live(smi: str):
+    """``LiveSource`` over a TUM directory that a writer thread grows (the
+    module docstring, item 14). Returns (ok, the launch counts)."""
+    frames, _ = make_sequence(QVGA_FR1, n=LIVE_FRAMES)
+    root = os.path.join(SMOKE_BUILD, "chip_smoke_live")
+    _new_tum_dir(root)
+    written, done = [], []
+
+    def writer():
+        for i, (rgb, depth, t) in enumerate(frames):
+            if i:
+                time.sleep(0.03)
+            written.append(_append_tum_frame(root, rgb, depth, t, 0.004 * (i % 3), 1))
+        done.append(time.monotonic())  # the last write
+
+    _zero_counts()
+    slam = port.SlamSystem(QVGA_FR1, default_config(), device="cuda")
+    w = threading.Thread(target=writer, name="capture-writer")
+    w.start()
+    src = live.LiveSource(root, poll_interval=0.01, idle_timeout=LIVE_IDLE_S,
+                          intrinsics=QVGA_FR1)
+    got, first_at, same = [], None, True
+    for fr in src.frames():
+        i = len(got)
+        got.append(fr.timestamp)
+        same &= (i < len(frames) and np.array_equal(fr.rgb, frames[i][0])
+                 and np.array_equal(fr.depth, frames[i][1]))
+        first_at = first_at or time.monotonic()
+        slam.process_frame(fr.rgb, fr.depth, fr.timestamp)
+    ended = time.monotonic()
+    w.join()
+    counts = _read_counts()
+    tc = slam.config.tracking
+    tr = slam.tracker_counts
+    expected = expected_launches(tc, len(got) - 1, tr["rerun_iters"], tr["rescues"])
+    fused = sum(s.get("n_fused", 0) > 0 for s in slam.stats)
+    lost = sum(bool(s.get("lost")) for s in slam.stats)
+    checks = {
+        "exactly once, in order": got == written and len(got) == LIVE_FRAMES,
+        "frames bit-equal": same,
+        "overlapped the capture": first_at is not None and first_at < done[0],
+        "ended on idle": ended - done[0] >= LIVE_IDLE_S,
+        "lost": lost == 0,
+        "launches": all(counts[k] == v for k, v in expected.items()) and counts["fusion"] == fused,
+    }
+    ok = all(checks.values())
+    print(f"[live] LiveSource on a TUM directory grown by a writer thread ({LIVE_FRAMES} QVGA "
+          f"pairs, 30 ms apart), SlamSystem on the card: delivered {len(got)}, lost {lost}, "
+          f"stream ended {ended - done[0]:.2f} s after the last write (idle timeout "
+          f"{LIVE_IDLE_S} s); launches {counts} (expected {expected}, fusion {fused}); {smi}")
+    print(f"[live] checks {checks} {'OK' if ok else 'FAIL'}")
+    return ok, counts
+
+
+def _records(stats):
+    return [{k: v for k, v in r.items() if k != "ms"} for r in stats]
+
+
+def phase_snapshot(smi: str):
+    """Save and resume on the card (the module docstring, item 15).
+    Returns (ok, the launch counts, the scorer's launches)."""
+    work = os.path.join(SMOKE_BUILD, "chip_smoke_snapshot")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # Back end off, rigid sequence: saved after SNAPSHOT_AT frames, restored,
+    # and run to the end beside the uninterrupted run.
+    frames, _ = make_sequence()
+    path = os.path.join(work, "rigid.npz")
+    _zero_counts()
+    a = port.SlamSystem(TUM_FR1, default_config(), device="cuda")
+    for i, f in enumerate(frames):
+        if i == SNAPSHOT_AT:
+            t0 = time.perf_counter()
+            snapshot.save(a, path)
+            save_ms = (time.perf_counter() - t0) * 1e3
+        a.process_frame(*f)
+    t0 = time.perf_counter()
+    b = snapshot.restore(path, device="cuda")
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    for f in frames[SNAPSHOT_AT:]:
+        b.process_frame(*f)
+    counts = _read_counts()
+    tc = a.config.tracking
+    ca, cb = a.tracker_counts, b.tracker_counts
+    expected = expected_launches(tc, len(frames) - 1 + len(frames) - SNAPSHOT_AT,
+                                 ca["rerun_iters"] + cb["rerun_iters"],
+                                 ca["rescues"] + cb["rescues"])
+    fused = (sum(s.get("n_fused", 0) > 0 for s in a.stats)
+             + sum(s.get("n_fused", 0) > 0 for s in b.stats[SNAPSHOT_AT:]))
+    records_equal = _records(b.stats) == _records(a.stats)
+    poses_equal = all(np.array_equal(x, y) for x, y in zip(a.poses(), b.poses()))
+    off = {
+        "records bit-equal": records_equal and len(b.stats) == len(frames),
+        "poses bit-equal": poses_equal,
+        "launches": all(counts[k] == v for k, v in expected.items()) and counts["fusion"] == fused,
+    }
+    print(f"[snapshot] back end off, rigid sequence: saved after {SNAPSHOT_AT} frames "
+          f"({os.path.getsize(path)} B, save {save_ms:.1f} ms, restore on the card "
+          f"{restore_ms:.1f} ms host), resumed to frame {len(frames) - 1}: per-frame records "
+          f"and poses bit-equal to the uninterrupted run {records_equal and poses_equal}; "
+          f"launches {counts} (expected {expected}, fusion {fused}); {smi}")
+    # Back end on, loop sequence: saved after finish() and restored.
+    frames, _ = make_loop_sequence()
+    path = os.path.join(work, "loop.npz")
+    _zero_counts()
+    slam = port.SlamSystem(TUM_FR1, backend_config(), device="cuda")
+    for f in frames:
+        slam.process_frame(*f)
+    slam.finish()
+    loop_counts = _read_counts()
+    scorer = slam.backend.loop_closer.scorer.launches
+    snapshot.save(slam, path)
+    back = snapshot.restore(path, device="cuda")
+    e0, e1 = slam.backend._loop_edges, back.backend._loop_edges
+    edges_equal = len(e0) == len(e1) >= 1 and all(
+        (x["from_id"], x["to_id"]) == (y["from_id"], y["to_id"])
+        and np.array_equal(x["T_rel"], y["T_rel"])
+        and np.array_equal(x["information"], y["information"]) for x, y in zip(e0, e1))
+    entries = slam.backend.loop_closer.db.entries
+    bow_equal = back.backend.loop_closer.db.entries == entries and len(entries) >= 1
+    processed = back.backend._processed == {kf.kf_id for kf in slam.manager.keyframes
+                                            if kf.descriptors is not None
+                                            and len(kf.descriptors) > 0}
+    back.finish()
+    tc = slam.config.tracking
+    tr = slam.tracker_counts
+    expected = expected_launches(tc, len(frames) - 1, tr["rerun_iters"], tr["rescues"])
+    fused = sum(s.get("n_fused", 0) > 0 for s in slam.stats)
+    on = {
+        "errors": slam.backend.errors == 0 and back.backend.errors == 0,
+        "loop edges equal": edges_equal,
+        "BoW entries equal": bow_equal,
+        "processed": processed,
+        "launches": all(loop_counts[k] == v for k, v in expected.items())
+        and loop_counts["fusion"] == fused,
+    }
+    print(f"[snapshot] back end on, loop sequence: saved after finish() "
+          f"({os.path.getsize(path)} B), restored on the card: loop edges {len(e1)} of "
+          f"{len(e0)} equal {edges_equal}, BoW entries {len(back.backend.loop_closer.db.entries)}"
+          f" of {len(entries)} equal {bow_equal}, thread errors {slam.backend.errors} / "
+          f"{back.backend.errors} after finish(); launches {loop_counts} (expected {expected}), "
+          f"scorer {scorer}")
+    ok = all(off.values()) and all(on.values())
+    print(f"[snapshot] checks {off} {on} {'OK' if ok else 'FAIL'}")
+    return ok, {k: counts[k] + loop_counts[k] for k in COUNTERS}, scorer
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -2713,6 +3111,15 @@ def main() -> int:
     for run in (g_launches, c_launches):
         for k in COUNTERS:
             total[k] += run[k]
+    # Real RGB-D data: --tum (with fuse_inverse_depth), the live source and
+    # the snapshot.
+    t_ok, t_launches = phase_tum(smi)
+    l_ok, l_launches = phase_live(smi)
+    sn_ok, sn_launches, sn_scorer = phase_snapshot(smi)
+    m_ok &= t_ok and l_ok and sn_ok
+    for run in (t_launches, l_launches, sn_launches):
+        for k in COUNTERS:
+            total[k] += run[k]
     # The storage, codec and early-exit knobs: SlamConfig.preset("real-v5e")
     # and the codecs on the main path, then each knob's ms/frame.
     p_ok, p_launches, p_scorer = phase_preset()
@@ -2744,7 +3151,7 @@ def main() -> int:
     # back-end threads' candidates (the loop run's and the gauntlet rows')
     # and the relocalization attempts.
     scorer_launches = (loop_out["launches"] + backend_run["scorer_launches"]
-                       + reloc_run["scorer_launches"] + g_scorer + p_scorer)
+                       + reloc_run["scorer_launches"] + g_scorer + p_scorer + sn_scorer)
     records["esm"]["scorer_launches"] = scorer_launches
     records["esm"]["launches"] += scorer_launches
     records["esm"].update(scorer_ms, loop_score_ms=loop_out["score_ms"],

@@ -1,15 +1,19 @@
 """Command-line runner (the port's copy of ``rgbid_tpu/cli.py``).
 
     python -m rgbid_tpu_torch --synthetic 60 --out-dir /tmp/run
-    python -m rgbid_tpu_torch --synthetic 40 --set backend.enabled=false --device cpu
+    python -m rgbid_tpu_torch --tum /data/rgbd_dataset_freiburg1_desk --eval
+    python -m rgbid_tpu_torch --live /data/capture --live-idle 5
+    python -m rgbid_tpu_torch --tum DIR --snapshot state.npz
+    python -m rgbid_tpu_torch --tum DIR --resume state.npz --device cpu
 
 Outputs: TUM-format trajectory, PLY map, JSONL per-frame log, and (with
-ground truth) ATE/RPE metrics printed as JSON. The system runs on
-``--device`` (the card by default). The synthetic source is the only one
-ported: ``--tum``, ``--live``, ``--calib``, ``--live-idle``, ``--resume``,
-``--snapshot``, ``--viz`` and ``--live-viz`` need modules that read or
-write through OpenCV or the JAX package's snapshot format, and raise
-``NotImplementedError`` before any work is done.
+ground truth: the synthetic sequence's, or a TUM directory's
+groundtruth.txt associated by timestamp) ATE/RPE metrics printed as JSON.
+The system runs on ``--device`` (the card by default). ``--snapshot``
+writes the JAX package's snapshot format and ``--resume`` reads it, from
+either package. ``--viz`` and ``--live-viz`` need the plots and the live
+viewer, which are not ported yet, and raise ``NotImplementedError``
+before any work is done.
 """
 
 from __future__ import annotations
@@ -25,12 +29,6 @@ import numpy as np
 
 # The options whose modules are not ported yet: (attribute, flag).
 UNPORTED = (
-    ("tum", "--tum"),
-    ("live", "--live"),
-    ("calib", "--calib"),
-    ("live_idle", "--live-idle"),
-    ("resume", "--resume"),
-    ("snapshot", "--snapshot"),
     ("viz", "--viz"),
     ("live_viz", "--live-viz"),
 )
@@ -51,11 +49,17 @@ def _parse_set(values):
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="rgbid_tpu_torch", description=__doc__)
     src = ap.add_mutually_exclusive_group(required=True)
-    src.add_argument("--tum", metavar="DIR", help="TUM RGB-D sequence directory (not ported)")
-    src.add_argument("--live", metavar="DIR", help="follow a growing TUM-format directory (not ported)")
+    src.add_argument("--tum", metavar="DIR", help="TUM RGB-D sequence directory")
+    src.add_argument(
+        "--live",
+        metavar="DIR",
+        help="live capture: follow a growing TUM-format directory (the layout every "
+        "headless RGB-D capture daemon writes) and track frames as they arrive; the "
+        "stream ends after --live-idle seconds without new frames",
+    )
     src.add_argument("--synthetic", type=int, metavar="N", help="render N synthetic frames")
-    ap.add_argument("--live-idle", type=float, default=None,
-                    help="seconds without new frames before a --live stream ends (not ported)")
+    ap.add_argument("--live-idle", type=float, default=10.0,
+                    help="seconds without new frames before a --live stream ends")
     ap.add_argument("--motion", default="orbit", choices=["orbit", "loop", "static"])
     ap.add_argument("--config", metavar="JSON", help="config file (JSON)")
     ap.add_argument(
@@ -64,16 +68,21 @@ def _parser() -> argparse.ArgumentParser:
         choices=["default", "sandbox", "real-v5e"],
         help="named config preset (SlamConfig.preset); --config/--set apply on top",
     )
-    ap.add_argument("--calib", metavar="FILE", help="camera calibration file (not ported)")
+    ap.add_argument(
+        "--calib",
+        metavar="FILE",
+        help="camera calibration file (fx fy cx cy [w h] [k1 k2 p1 p2 k3]); a "
+        "calibration.txt inside the TUM directory is picked up automatically",
+    )
     ap.add_argument(
         "--intrinsics",
         metavar="fx,fy,cx,cy[,w,h]",
-        help="override camera intrinsics (default: the synthetic VGA camera)",
+        help="override camera intrinsics (defaults: TUM per-sequence / synthetic)",
     )
     ap.add_argument("--set", action="append", metavar="KEY=VAL", help="config override (dotted)")
     ap.add_argument("--out-dir", default=None, help="write trajectory/map/log here")
-    ap.add_argument("--snapshot", default=None, help="write a full-state snapshot here (not ported)")
-    ap.add_argument("--resume", default=None, help="resume from a snapshot file (not ported)")
+    ap.add_argument("--snapshot", default=None, help="write a full-state snapshot here")
+    ap.add_argument("--resume", default=None, help="resume from a snapshot file")
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--eval", action="store_true", help="print ATE/RPE vs ground truth")
     ap.add_argument("--voxel", type=float, default=0.01, help="map voxel downsample (m)")
@@ -97,6 +106,7 @@ def main(argv=None):
     from .datasets import prefetch_frames
     from .datasets import synthetic as synth
     from .eval import absolute_trajectory_error, relative_pose_error
+    from .eval.metrics import associate_trajectories, trajectory_from_tum_rows
     from .system import SlamSystem
     from .utils.logging import JsonlLogger
     from .utils.profiling import StageTimer
@@ -110,19 +120,40 @@ def main(argv=None):
         cfg = cfg.override(**{k: tuple(v) if isinstance(v, list) else v for k, v in overrides.items()})
 
     # Frame source.
-    intr = DEFAULT
+    gt_poses, seq = None, None
+    custom_intr = None
     if args.intrinsics:
         vals = [float(x) for x in args.intrinsics.split(",")]
         if len(vals) == 4:
             vals += [640, 480]
-        intr = Intrinsics(vals[0], vals[1], vals[2], vals[3], int(vals[4]), int(vals[5]))
-    sseq = synth.generate_sequence(
-        n_frames=args.synthetic, intr=intr, motion=args.motion, xi_noise_sigma=0.003
-    )
-    frames = sseq.frames()
-    gt_poses = sseq.gt_poses
+        custom_intr = Intrinsics(vals[0], vals[1], vals[2], vals[3], int(vals[4]), int(vals[5]))
+    if args.tum:
+        from .datasets.tum import TumSequence
 
-    slam = SlamSystem(intr, cfg, device=args.device)
+        seq = TumSequence(args.tum, intrinsics=custom_intr, calib_file=args.calib)
+        intr = seq.intrinsics
+        frames = seq.frames()
+    elif args.live:
+        from .datasets.live import LiveSource
+
+        live = LiveSource(args.live, idle_timeout=args.live_idle, intrinsics=custom_intr,
+                          calib_file=args.calib)
+        intr = live.intrinsics
+        frames = live.frames()
+    else:
+        intr = custom_intr or DEFAULT
+        sseq = synth.generate_sequence(
+            n_frames=args.synthetic, intr=intr, motion=args.motion, xi_noise_sigma=0.003
+        )
+        frames = sseq.frames()
+        gt_poses = sseq.gt_poses
+
+    if args.resume:
+        from .utils import snapshot
+
+        slam = snapshot.restore(args.resume, cfg, device=args.device)
+    else:
+        slam = SlamSystem(intr, cfg, device=args.device)
 
     out_dir = args.out_dir
     if out_dir:
@@ -132,7 +163,7 @@ def main(argv=None):
     else:
         logger = JsonlLogger(None)
 
-    # Ingestion: a background thread produces frames (prefetch_frames) while
+    # Ingestion: a background thread reads frames (prefetch_frames) while
     # the main thread feeds them in chunks of config.pipeline_depth. The
     # port's feed() processes one frame at a time, so the depth only sizes
     # the chunks.
@@ -193,12 +224,27 @@ def main(argv=None):
         slam.save_map(os.path.join(out_dir, f"map.{args.map_format}"), voxel=args.voxel)
         result["out_dir"] = out_dir
 
+    if args.snapshot:
+        from .utils import snapshot
+
+        snapshot.save(slam, args.snapshot)
+        result["snapshot"] = args.snapshot
+
     if args.eval:
         est = slam.poses()
-        gt0 = np.linalg.inv(gt_poses[0])
-        gt = [gt0 @ T for T in gt_poses][: len(est)]
-        result["ate"] = absolute_trajectory_error(gt, est)
-        result["rpe"] = relative_pose_error(gt, est)
+        if gt_poses is not None:
+            gt0 = np.linalg.inv(gt_poses[0])
+            gt = [gt0 @ T for T in gt_poses][: len(est)]
+            result["ate"] = absolute_trajectory_error(gt, est)
+            result["rpe"] = relative_pose_error(gt, est)
+        elif seq is not None and seq.groundtruth is not None:
+            ts_est = np.asarray([t for t, _ in slam.trajectory()])
+            ts_gt, gt_all = trajectory_from_tum_rows(seq.groundtruth)
+            matches = associate_trajectories(ts_est, ts_gt)
+            gt = [gt_all[j] for _, j in matches]
+            est_m = [est[i] for i, _ in matches]
+            result["ate"] = absolute_trajectory_error(gt, est_m)
+            result["rpe"] = relative_pose_error(gt, est_m)
 
     logger.write({"type": "result", **result})
     logger.close()

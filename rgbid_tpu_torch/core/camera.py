@@ -18,8 +18,10 @@ class Intrinsics(NamedTuple):
     height: int
 
 
-# Default TUM fr1-style calibration (freiburg1 sequences).
+# TUM RGB-D factory calibrations (freiburg1, 2 and 3 sequences).
 TUM_FR1 = Intrinsics(fx=517.3, fy=516.5, cx=318.6, cy=255.3, width=640, height=480)
+TUM_FR2 = Intrinsics(fx=520.9, fy=521.0, cx=325.1, cy=249.7, width=640, height=480)
+TUM_FR3 = Intrinsics(fx=535.4, fy=539.2, cx=320.1, cy=247.6, width=640, height=480)
 # The synthetic renderer's and the command line's default camera (VGA).
 DEFAULT = Intrinsics(fx=525.0, fy=525.0, cx=319.5, cy=239.5, width=640, height=480)
 

@@ -1,10 +1,11 @@
 """Dataset / frame-source layer.
 
 The port's copy of ``rgbid_tpu/datasets/__init__.py``: the ``Frame``
-record, ``prefetch_frames`` and the synthetic RGB-D renderer (host numpy,
-no OpenCV). The TUM reader and the live source (``tum.py``, ``live.py``)
-read through OpenCV in the JAX package and are not ported yet (ROADMAP
-Queue 1 #8).
+record, ``prefetch_frames``, the synthetic RGB-D renderer (``synthetic.py``),
+the TUM reader (``tum.py``) and the live source that follows a growing TUM
+directory (``live.py``), all host numpy with no OpenCV: PNGs go through
+``png.py`` and the undistortion and the renderer's filters through
+``_cv.py``.
 """
 
 from dataclasses import dataclass

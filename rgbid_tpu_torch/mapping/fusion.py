@@ -16,11 +16,15 @@ guess)``, ``warp_points``, the corner gather of ``[cur_xi, cur_mask]``,
 ``fuse_and_grow``. ``hole_guess``, ``fuse_core_plain``, ``fuse_core`` and
 ``fuse_and_grow`` keep the JAX package's contracts as the plain building
 blocks of ``fuse_frame_plain``; they have no kernel of their own.
+``fuse_inverse_depth`` is the JAX package's Kalman-only step (no growth,
+no pose-noise floor, the mask returned as given): ``fuse_core_plain`` on
+the CPU, one launch of the same fusion kernel with growth and the floor
+off on the card, counted in ``fuse_frame.launches`` too.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -204,13 +208,16 @@ def fuse_frame_plain(
     return xi_new, var_new, mask_new, hits_new, n
 
 
-def fusion_params(levels, track_cov, intr: Intrinsics, cfg) -> _build.FusionParams:
+def fusion_params(levels, track_cov, intr: Intrinsics, cfg, grow: Optional[bool] = None,
+                  floor: bool = True) -> _build.FusionParams:
     """The fusion kernel's by-value parameters for ``levels`` (finest first;
     the coarse levels' planes are passed by address, so they must stay
     alive and contiguous until the launch is made) and the (6, 6)
-    covariance ``track_cov`` (read through its strides)."""
+    covariance ``track_cov`` (read through its strides). ``grow`` (default
+    cfg.grow_validity) turns the hole guess and the claims on; ``floor``
+    False adds no pose-noise floor to the covariance."""
     h, w = levels[0].xi.shape
-    grow = bool(cfg.grow_validity)
+    grow = bool(cfg.grow_validity if grow is None else grow)
     coarse = [l.xi for l in levels[1:]] if grow else []
     if len(coarse) > _build.MAX_COARSE:
         raise ValueError(f"fuse_frame reads at most {_build.MAX_COARSE} coarse levels, "
@@ -224,7 +231,8 @@ def fusion_params(levels, track_cov, intr: Intrinsics, cfg) -> _build.FusionPara
         sensor_var=cfg.sensor_sigma_xi**2, gate_k2=cfg.gate_k**2,
         min_var=cfg.min_variance, max_var=cfg.max_variance,
         claim_tol=cfg.claim_tol, claim_infl=cfg.claim_var_inflation,
-        trans_var=cfg.pose_trans_sigma**2, rot_var=cfg.pose_rot_sigma**2,
+        trans_var=cfg.pose_trans_sigma**2 if floor else 0.0,
+        rot_var=cfg.pose_rot_sigma**2 if floor else 0.0,
         ch=(*(c.shape[0] for c in coarse), *pad), cw=(*(c.shape[1] for c in coarse), *pad),
         coarse=(*(c.data_ptr() for c in coarse), *pad),
     )
@@ -232,7 +240,7 @@ def fusion_params(levels, track_cov, intr: Intrinsics, cfg) -> _build.FusionPara
 
 def _fuse_frame_cuda(
     levels, kf_var, kf_mask, kf_hits, cur_xi, cur_mask, T_ck, track_cov,
-    intr: Intrinsics, cfg,
+    intr: Intrinsics, cfg, grow: Optional[bool] = None, floor: bool = True,
 ):
     kf_xi = levels[0].xi
     dev = kf_xi.device
@@ -244,12 +252,13 @@ def _fuse_frame_cuda(
     # The tracker's covariance comes out of cholesky_solve column-major; the
     # kernel reads its 3x3 block through the strides, with no copy.
     _build.require(track_cov, "track_cov", dev, (6, 6), contiguous=False)
-    if cfg.grow_validity:
+    grow = bool(cfg.grow_validity if grow is None else grow)
+    if grow:
         for l, lv in enumerate(levels[1:], 1):
             _build.require(lv.xi, f"levels[{l}].xi", dev)
             if lv.xi.dim() != 2:
                 raise ValueError(f"levels[{l}].xi must be (H, W), got {tuple(lv.xi.shape)}")
-    p = fusion_params(levels, track_cov, intr, cfg)
+    p = fusion_params(levels, track_cov, intr, cfg, grow, floor)
     ws = workspace(dev)
     xi_new, var_new = torch.empty_like(kf_xi), torch.empty_like(kf_xi)
     mask_new, hits_new = torch.empty_like(kf_xi), torch.empty_like(kf_xi)
@@ -294,3 +303,33 @@ def fuse_frame(
 
 
 fuse_frame.launches = 0
+
+
+class _Level0(NamedTuple):
+    xi: torch.Tensor
+
+
+def fuse_inverse_depth(
+    kf_xi: torch.Tensor, kf_var: torch.Tensor, kf_mask: torch.Tensor, cur_xi: torch.Tensor,
+    cur_mask: torch.Tensor, T_ck: torch.Tensor, pose_cov: torch.Tensor, intr: Intrinsics, cfg,
+):
+    """Kalman-only fusion step, the JAX package's ``fuse_inverse_depth``:
+    ``pose_cov`` is used as given (no pose-noise floor), no hole is
+    claimed, and the mask comes back as the input ``kf_mask`` itself.
+    Returns (xi', var', kf_mask, n_fused). All planes (H, W) float32.
+
+    On a CPU tensor it is ``fuse_core_plain`` with no guess; on a CUDA
+    tensor one launch of the fusion kernel with growth off and a zero
+    floor (its hit and mask planes are scratch), or it raises."""
+    kind = kf_xi.device.type
+    if kind == "cpu":
+        xi_new, var_new, _, _, n = fuse_core_plain(
+            kf_xi, kf_var, kf_mask, cur_xi, cur_mask, T_ck, pose_cov, intr, cfg)
+        return xi_new, var_new, kf_mask, n
+    if kind != "cuda":
+        raise ValueError(f"no fusion kernel for device {kf_xi.device}")
+    xi_new, var_new, _, _, n = _fuse_frame_cuda(
+        (_Level0(kf_xi),), kf_var, kf_mask, torch.zeros_like(kf_xi), cur_xi, cur_mask, T_ck,
+        pose_cov, intr, cfg, grow=False, floor=False,
+    )
+    return xi_new, var_new, kf_mask, n

@@ -3,8 +3,9 @@
 The port's counterpart of ``rgbid_tpu/native/__init__.py``: pose-graph
 normal-system assembly (the O(E) small-matrix loop) and batched Hamming
 descriptor distances, from ``pose_graph.cpp`` (a copy of the JAX package's
-source). The numpy implementations stay as oracles
-(backend/pose_graph.py, backend/place_recognition.py).
+source), and PNG row unfiltering from ``png_unfilter.cpp`` (the port's
+own). The numpy implementations stay as oracles
+(backend/pose_graph.py, backend/place_recognition.py, datasets/png.py).
 
 The shared library is built with ``g++`` at first use, never at import,
 into ``build/rgbid_tpu_torch/`` at the repository root (the directory of
@@ -13,9 +14,9 @@ nothing is written next to the source. One rule decides who uses it:
 ``toolchain()`` is the path of ``g++`` or None. With a toolchain the
 wrappers build and load the library, and a build or load that fails
 raises ``RuntimeError``; there is no quiet fall back to numpy. Without one
-the wrappers raise, and ``place_recognition.hamming_distances`` (the only
-caller with a numpy twin on its path) takes numpy because
-``toolchain()`` is None.
+the wrappers raise, and ``place_recognition.hamming_distances`` and
+``png.unfilter`` (the callers with a numpy twin on their path) take numpy
+because ``toolchain()`` is None.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent / "pose_graph.cpp"
+_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("pose_graph.cpp", "png_unfilter.cpp"))
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rgbid_tpu_torch"
 # No -march=native: a build directory copied to another machine must still load.
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
@@ -47,7 +48,8 @@ def toolchain():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(_SRC.read_bytes())
+    for src in _SOURCES:
+        h.update(src.read_bytes())
     return BUILD_DIR / f"libslamnative_{h.hexdigest()[:16]}.so"
 
 
@@ -59,7 +61,7 @@ def _build(out: Path) -> None:
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
         tmp = work / out.name
-        cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(_SRC)]
+        cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), *(str(src) for src in _SOURCES)]
         run = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if run.returncode != 0:
             raise RuntimeError(
@@ -97,6 +99,8 @@ def load():
         lib.pg_apply_updates.argtypes = [pd, i, pd, pu8]
         lib.hamming_batch.restype = None
         lib.hamming_batch.argtypes = [pu8, i, pu8, i, i, pi]
+        lib.png_unfilter.restype = i
+        lib.png_unfilter.argtypes = [pu8, i, i, i, pu8]
         _lib = lib
         return _lib
 
@@ -167,4 +171,17 @@ def hamming_batch(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     out = np.zeros((len(a), len(b)), np.int32)
     if len(a) and len(b):
         lib.hamming_batch(a, len(a), b, len(b), a.shape[1], out)
+    return out
+
+
+def png_unfilter(raw: np.ndarray, stride: int, bpp: int) -> np.ndarray:
+    """(h, 1 + stride) filtered PNG rows -> (h, stride) uint8 image bytes.
+    Raises ValueError naming the first row whose filter byte is not 0-4."""
+    lib = load()
+    raw = np.ascontiguousarray(raw, np.uint8)
+    h = raw.shape[0]
+    out = np.empty((h, stride), np.uint8)
+    bad = lib.png_unfilter(raw.reshape(-1), h, stride, bpp, out.reshape(-1))
+    if bad:
+        raise ValueError(f"row {bad - 1} has filter type {raw[bad - 1, 0]} (0-4 allowed)")
     return out

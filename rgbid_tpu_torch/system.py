@@ -26,7 +26,8 @@ from .mapping import export as _export
 from .mapping.keyframe import DeviceKeyframe
 from .mapping.manager import KeyframeManager
 from .reference_cpu import odometry, se3_np
-from .tracking.step import MotionState, ProcessFrame, StepResult, gray_from_rgb, pack_frame
+from .tracking.step import (MotionState, ProcessFrame, StepResult, check_packed_shape,
+                            gray_from_rgb, pack_frame)
 from .tracking.tracker import check_tracking_supported
 
 
@@ -116,10 +117,35 @@ class SlamSystem:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def process_frame(self, rgb_u8: np.ndarray, depth_u16: np.ndarray, timestamp: float) -> np.ndarray:
-        """Track one frame; returns the world camera pose T_wc (4x4)."""
+    def _packed(self, packed) -> torch.Tensor:
+        """A frame's upload prepared ahead by the caller: the output of
+        ``pack_frame(rgb_u8, depth_u16, config)`` as a numpy array (uploaded
+        as ``_upload`` does) or as a uint8 tensor already on ``self.device``.
+        A shape of another codec raises ``decode_frame``'s ValueError."""
+        check_packed_shape(tuple(packed.shape), self.config)
+        if isinstance(packed, torch.Tensor):
+            if packed.device != self.device or packed.dtype != torch.uint8:
+                raise ValueError(f"packed must be a uint8 tensor on {self.device}, got "
+                                 f"{packed.dtype} on {packed.device}")
+            return packed
+        packed = np.asarray(packed)
+        if packed.dtype != np.uint8:
+            raise ValueError(f"packed must be uint8 from pack_frame, got {packed.dtype}")
+        return self._upload(np.ascontiguousarray(packed))
+
+    def process_frame(self, rgb_u8: np.ndarray, depth_u16: np.ndarray, timestamp: float,
+                      packed=None) -> np.ndarray:
+        """Track one frame; returns the world camera pose T_wc (4x4).
+
+        ``packed`` optionally supplies the frame's upload prepared ahead of
+        time (``pack_frame(rgb_u8, depth_u16, config)``, numpy or already on
+        the device); it must use this system's depth codec, and is checked
+        before any state changes."""
         t0 = time.perf_counter()
-        packed = self._upload(pack_frame(rgb_u8, depth_u16, self.config))
+        if packed is None:
+            packed = self._upload(pack_frame(rgb_u8, depth_u16, self.config))
+        else:
+            packed = self._packed(packed)
         if self._kf_state is None:
             self._found_keyframe(packed, timestamp, np.eye(4), rgb_u8)
             T_wc = np.eye(4)

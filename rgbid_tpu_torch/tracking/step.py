@@ -194,6 +194,36 @@ def pack_frame(rgb_u8: np.ndarray, depth_u16: np.ndarray, cfg=None) -> np.ndarra
     return out
 
 
+def check_packed_shape(shape: tuple, cfg) -> None:
+    """Raise ValueError when a packed buffer of ``shape`` was not made by
+    ``pack_frame`` with ``cfg.depth_codec`` (``decode_frame``'s check)."""
+    if cfg.depth_codec == "u12":
+        if len(shape) != 2 or shape[1] % 5 != 0:
+            raise ValueError(
+                f"depth_codec='u12' expects a (H, 5*W/2) packed buffer from "
+                f"pack_frame(..., cfg) with the same codec; got shape {shape}. (A "
+                f"(3, H, W) buffer means the frame was packed with the 'u16' codec.)"
+            )
+    elif cfg.depth_codec == "u16h":
+        # An even width as well as rows divisible by 3: a (H, 5W/2) u12
+        # buffer then passes only when W % 4 == 0 and H % 3 == 0 (the JAX
+        # package's check).
+        if len(shape) != 2 or shape[0] % 3 != 0 or shape[1] % 2 != 0:
+            raise ValueError(
+                f"depth_codec='u16h' expects a (3H/2, W) packed buffer (W even) from "
+                f"pack_frame(..., cfg) with the same codec; got shape {shape}. (A (3, H, W) "
+                f"buffer means the frame was packed with the 'u16' codec; a (H, 5W/2) one "
+                f"with 'u12'.)"
+            )
+    elif len(shape) != 3 or shape[0] != 3:
+        raise ValueError(
+            f"depth_codec='u16' expects a (3, H, W) packed buffer [gray, depth-lo, "
+            f"depth-hi]; got shape {shape}. (A 2-D buffer means the frame was packed "
+            f"with the 'u12' or 'u16h' codec: pass the same cfg to pack_frame and "
+            f"SlamSystem.)"
+        )
+
+
 def decode_frame(packed_u8: torch.Tensor, cfg):
     """Device side: a packed upload -> (gray u8, xi, mask), by
     ``cfg.depth_codec``. Plain PyTorch ops, as the JAX package's decode is
@@ -201,13 +231,8 @@ def decode_frame(packed_u8: torch.Tensor, cfg):
     half-resolution raw depth like u16, then upsamples. A buffer packed
     with another codec raises ValueError (its shape tells)."""
     shape = tuple(packed_u8.shape)
+    check_packed_shape(shape, cfg)
     if cfg.depth_codec == "u12":
-        if packed_u8.dim() != 2 or shape[1] % 5 != 0:
-            raise ValueError(
-                f"depth_codec='u12' expects a (H, 5*W/2) packed buffer from "
-                f"pack_frame(..., cfg) with the same codec; got shape {shape}. (A "
-                f"(3, H, W) buffer means the frame was packed with the 'u16' codec.)"
-            )
         h, w = shape[0], (shape[1] * 2) // 5
         gray = packed_u8[:, :w]
         trip = packed_u8[:, w:].reshape(h, w // 2, 3).to(torch.int32)
@@ -221,16 +246,6 @@ def decode_frame(packed_u8: torch.Tensor, cfg):
         xi = ((code.to(torch.float32) - 1.0) * step + xi_min) * mask
         return gray, xi, mask
     if cfg.depth_codec == "u16h":
-        # An even width as well as rows divisible by 3: a (H, 5W/2) u12
-        # buffer then passes only when W % 4 == 0 and H % 3 == 0 (the JAX
-        # package's check).
-        if packed_u8.dim() != 2 or shape[0] % 3 != 0 or shape[1] % 2 != 0:
-            raise ValueError(
-                f"depth_codec='u16h' expects a (3H/2, W) packed buffer (W even) from "
-                f"pack_frame(..., cfg) with the same codec; got shape {shape}. (A (3, H, W) "
-                f"buffer means the frame was packed with the 'u16' codec; a (H, 5W/2) one "
-                f"with 'u12'.)"
-            )
         h = (shape[0] * 2) // 3
         gray = packed_u8[:h]
         d8 = packed_u8[h:]
@@ -239,13 +254,6 @@ def decode_frame(packed_u8: torch.Tensor, cfg):
                                                     cfg.max_depth)
         xi, mask = image.upsample2x_renorm(xi_h, mask_h)
         return gray, xi, mask
-    if packed_u8.dim() != 3 or shape[0] != 3:
-        raise ValueError(
-            f"depth_codec='u16' expects a (3, H, W) packed buffer [gray, depth-lo, "
-            f"depth-hi]; got shape {shape}. (A 2-D buffer means the frame was packed "
-            f"with the 'u12' or 'u16h' codec: pass the same cfg to pack_frame and "
-            f"SlamSystem.)"
-        )
     gray = packed_u8[0]
     d16 = packed_u8[1].to(torch.int32) | (packed_u8[2].to(torch.int32) << 8)
     xi, mask = image.inverse_depth_from_u16(d16, cfg.depth_scale, cfg.min_depth, cfg.max_depth)

@@ -1,6 +1,7 @@
 """The port's command line (``python -m rgbid_tpu_torch``) on the CPU:
 ``tests/test_cli_and_snapshot.py::test_cli_synthetic_run`` with
-``--device cpu``, and each option whose module is not ported raising
+``--device cpu``, ``--snapshot`` then ``--resume`` (the resumed run goes on
+from the saved state), and each option whose module is not ported raising
 ``NotImplementedError`` that names an open ROADMAP Queue 1 item, before
 any frame is rendered."""
 
@@ -46,12 +47,6 @@ def test_cli_synthetic_run(tmp_path, capsys):
 
 
 _UNPORTED_ARGV = {
-    "--tum": ["--tum", "seq_dir"],
-    "--live": ["--live", "capture_dir"],
-    "--calib": ["--synthetic", "4", "--calib", "calib.txt"],
-    "--live-idle": ["--synthetic", "4", "--live-idle", "5"],
-    "--resume": ["--synthetic", "4", "--resume", "state.npz"],
-    "--snapshot": ["--synthetic", "4", "--snapshot", "state.npz"],
     "--viz": ["--synthetic", "4", "--viz"],
     "--live-viz": ["--synthetic", "4", "--live-viz", "viz_dir"],
 }
@@ -75,3 +70,32 @@ def test_unported_flag_raises_before_any_work(flag, monkeypatch, tmp_path):
     entry = re.search(rf"^{item}\. \*\*(.*)$", queue1, re.M)
     assert entry is not None, f"ROADMAP Queue 1 has no item #{item}"
     assert "(done" not in entry.group(1).lower(), entry.group(1)
+
+
+def test_cli_snapshot_then_resume(tmp_path, capsys):
+    """``--snapshot`` writes the state after 6 frames; ``--resume`` restores
+    it (the JAX package's wiring: the restored records, then the source's
+    frames again) and runs on; the resumed run's first 6 logged records are
+    the saved run's."""
+    state = str(tmp_path / "state.npz")
+    common = ["--synthetic", "12", "--intrinsics", "258.6,258.2,159.3,127.6,320,240",
+              "--quiet", "--eval", "--set", "tracking.levels=3",
+              "--set", "tracking.iters=[4,8,16]", "--set", "backend.enabled=false",
+              "--device", "cpu"]
+    assert cli_main(common + ["--max-frames", "6", "--snapshot", state,
+                              "--out-dir", str(tmp_path / "a")]) == 0
+    first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert first["snapshot"] == state and first["frames"] == 6 and os.path.exists(state)
+    assert cli_main(common + ["--max-frames", "4", "--resume", state,
+                              "--out-dir", str(tmp_path / "b")]) == 0
+    second = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert second["frames"] == 10 and second["lost_frames"] == 0
+    assert second["config_hash"] == first["config_hash"]
+
+    def frames(run):
+        lines = open(tmp_path / run / "frames.jsonl").read().splitlines()
+        return [json.loads(line) for line in lines if '"type": "frame"' in line]
+
+    a, b = frames("a"), frames("b")
+    assert len(a) == 6 and len(b) == 10
+    assert b[:6] == a

@@ -161,3 +161,63 @@ def test_decode_frame_rejects_codec_mismatch():
         # The same text up to the hint that follows it (the port's u16 hint
         # names u16h too).
         assert str(ours.value).split(". (A")[0] == str(ref.value).split(". (A")[0]
+
+
+def _packed_run(codec: str, packed_as):
+    """Six frames of the smoke's scene at 96x72 through a fresh system, the
+    upload prepared by ``pack_frame`` ahead of time (``packed_as`` "numpy"
+    or "tensor", alternating with none) or not at all (None)."""
+    import chip_smoke
+    import rgbid_tpu_torch as port
+
+    intr = port.Intrinsics(fx=90.0, fy=90.0, cx=47.5, cy=35.5, width=96, height=72)
+    frames, _ = chip_smoke.make_sequence(intr, n=6)
+    cfg = SlamConfig().override(**{"depth_codec": codec, "backend.enabled": False,
+                                   "tracking.levels": 3, "tracking.iters": (4, 8, 12)})
+    slam = port.SlamSystem(intr, cfg, device="cpu")
+    poses = []
+    for i, (rgb, depth, t) in enumerate(frames):
+        packed = None
+        if packed_as is not None and i % 3 != 2:
+            packed = step.pack_frame(rgb, depth, cfg)
+            if packed_as == "tensor":
+                packed = torch.from_numpy(packed)
+        poses.append(slam.process_frame(rgb, depth, t, packed=packed))
+    recs = [{k: v for k, v in r.items() if k != "ms"} for r in slam.stats]
+    return poses, recs, slam
+
+
+@pytest.mark.parametrize("codec", ["u16", "u12"])
+def test_process_frame_takes_packed_upload(codec):
+    """``process_frame(..., packed=pack_frame(...))`` (the JAX package's
+    signature), as numpy or as a tensor already on the system's device,
+    gives the poses and per-frame records of the run without it, bit for
+    bit (the same bytes reach the same step)."""
+    poses, recs, _ = _packed_run(codec, None)
+    for packed_as in ("numpy", "tensor"):
+        p2, r2, _ = _packed_run(codec, packed_as)
+        for a, b in zip(poses, p2):
+            np.testing.assert_array_equal(a, b)
+        assert r2 == recs
+    assert any(r.get("n_fused", 0) > 0 for r in recs)
+
+
+def test_process_frame_refuses_packed_of_another_codec():
+    """A packed buffer of another codec raises ``decode_frame``'s ValueError
+    before any state changes; so do a non-uint8 buffer and a tensor on
+    another device or of another type."""
+    _, _, slam = _packed_run("u16", None)
+    rgb, depth = _frame(72, 96, 5)
+    before = (slam._frame_count, len(slam.stats), slam._kf_state, slam._motion,
+              len(slam._trajectory))
+    u12 = step.pack_frame(rgb, depth, SlamConfig().override(depth_codec="u12"))
+    with pytest.raises(ValueError, match="depth_codec='u16' expects"):
+        slam.process_frame(rgb, depth, 9.0, packed=u12)
+    good = step.pack_frame(rgb, depth, SlamConfig())
+    for bad in (good.astype(np.int16), torch.from_numpy(good).to(torch.int16),
+                torch.from_numpy(good).to("meta")):
+        with pytest.raises(ValueError, match="packed must be"):
+            slam.process_frame(rgb, depth, 9.0, packed=bad)
+    after = (slam._frame_count, len(slam.stats), slam._kf_state, slam._motion,
+             len(slam._trajectory))
+    assert all(a is b or a == b for a, b in zip(before, after))

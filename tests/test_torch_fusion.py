@@ -253,3 +253,66 @@ def test_plain_building_blocks_raise_off_cpu():
         tfusion.fuse_and_grow(m, m, m, m, m, m, eye, cov, intr, cfg)
     with pytest.raises(ValueError, match="no fusion kernel"):
         tfusion.fuse_frame([KeyframeLevel(m, m, m, m)], m, m, m, m, m, eye, cov, intr, cfg)
+
+
+@pytest.mark.parametrize("ref_kernel", ["pallas", "xla"])
+@pytest.mark.parametrize("size", ["120x160", "121x161"])
+def test_fuse_inverse_depth_matches_jax(states, size, ref_kernel):
+    """The Kalman-only step, ``fuse_inverse_depth``, on CPU tensors against
+    the JAX package's through its Pallas kernel (interpret mode) and its
+    XLA route: the covariance as given (no pose-noise floor), no claim,
+    the mask returned as the input mask itself. n_fused exact; xi' and var'
+    within 1e-6 relative (+1e-9 absolute), as ``fuse_core``."""
+    intr, kf, cur, T_ck, cov = states[size]
+    ref = jfusion.fuse_inverse_depth(
+        kf.levels[0].xi, kf.var, kf.mask_full, cur[0].xi, cur[0].mask, jnp.asarray(T_ck),
+        jnp.asarray(cov), intr, dataclasses.replace(FusionConfig(), kernel=ref_kernel),
+    )
+    mask = _t(kf.mask_full)
+    out = tfusion.fuse_inverse_depth(
+        _t(kf.levels[0].xi), _t(kf.var), mask, _t(cur[0].xi), _t(cur[0].mask), _t(T_ck),
+        _t(cov), Intrinsics(*intr), TFusionConfig(),
+    )
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(ref[1]), rtol=1e-6, atol=1e-9)
+    assert out[2] is mask
+    np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[2]))
+    assert float(out[3]) == float(ref[3]) > 1000
+
+
+@pytest.mark.parametrize("size", ["120x160", "121x161"])
+def test_kernel_fusion_pixel_without_growth_or_floor(states, host_fusion, size):
+    """The kernel's per-pixel work with ``fuse_inverse_depth``'s settings
+    (growth off, a zero pose-noise floor, a zero hits plane), built for the
+    host, against the plain ``fuse_inverse_depth``: the mask it writes is
+    the input mask exactly, n_fused exact, xi' within 1e-6 and var' within
+    1e-9."""
+    intr, kf, cur, T_ck, cov = states[size]
+    xi, var, mask = _t(kf.levels[0].xi), _t(kf.var), _t(kf.mask_full)
+    cur_xi, cur_mask, T, C = _t(cur[0].xi), _t(cur[0].mask), _t(T_ck), _t(cov)
+    cfg, tintr = TFusionConfig(), Intrinsics(*intr)
+    ref = tfusion.fuse_inverse_depth(xi, var, mask, cur_xi, cur_mask, T, C, tintr, cfg)
+    p = tfusion.fusion_params([tfusion._Level0(xi)], C, tintr, cfg, grow=False, floor=False)
+    assert p.grow == 0 and p.n_coarse == 0 and p.trans_var == 0.0 and p.rot_var == 0.0
+    outs = [torch.empty_like(var) for _ in range(4)]
+    n = host_fusion(ctypes.byref(p), *(x.data_ptr() for x in (
+        T, C, xi, var, mask, torch.zeros_like(xi), cur_xi, cur_mask, *outs)))
+    assert np.abs(outs[0].numpy() - ref[0].numpy()).max() <= 1e-6
+    assert np.abs(outs[1].numpy() - ref[1].numpy()).max() <= 1e-9
+    np.testing.assert_array_equal(outs[2].numpy(), mask.numpy())
+    assert n == float(ref[3]) > 1000
+
+
+def test_fuse_inverse_depth_has_no_fallback_off_cuda():
+    """Off the CPU, ``fuse_inverse_depth`` has a kernel only for CUDA; the
+    mapping package exports it with the reference's four other names."""
+    from rgbid_tpu_torch import mapping
+
+    for name in ("DeviceKeyframe", "Keyframe", "create_device_keyframe",
+                 "rebuild_after_fusion", "fuse_inverse_depth"):
+        assert hasattr(mapping, name), name
+    m = torch.zeros((4, 4), device="meta")
+    intr = Intrinsics(fx=4.0, fy=4.0, cx=1.5, cy=1.5, width=4, height=4)
+    with pytest.raises(ValueError, match="no fusion kernel"):
+        tfusion.fuse_inverse_depth(m, m, m, m, m, torch.eye(4, device="meta"),
+                                   torch.zeros((6, 6), device="meta"), intr, TFusionConfig())

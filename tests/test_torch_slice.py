@@ -184,7 +184,10 @@ def test_port_imports_no_jax_or_cv2():
     """A fresh process imports the port, tracks a frame on the CPU,
     imports chip_smoke and every module of the port (the renderer, the
     gauntlet, the seed sweep, the vocabulary builder, the utilities and the
-    command line) and renders a short sequence without loading jax or cv2,
+    command line), renders a short sequence, writes it as a TUM directory
+    with the port's PNG encoder, reads it back through the TUM reader (with
+    the fr1 undistortion) and the live source, and saves and restores a
+    snapshot, without loading jax or cv2,
     and without loading any module from a file of the JAX package
     (``rgbid_tpu/``); the port's config is the JAX package's (same hash)."""
     code = (
@@ -217,6 +220,21 @@ def test_port_imports_no_jax_or_cv2():
         "seq = synthetic.generate_sequence(n_frames=2, intr=intr, kinect_artifacts=1.0,\n"
         "                                  depth_hole_frac=0.1)\n"
         "assert seq.rgb[1].shape == (48, 64, 3) and (seq.depth[1] > 0).mean() > 0.5\n"
+        "import tempfile, os\n"
+        "from rgbid_tpu_torch.datasets import png, tum, live\n"
+        "from rgbid_tpu_torch.utils import snapshot\n"
+        "d = tempfile.mkdtemp()\n"
+        "for sub in ('rgb', 'depth'): os.makedirs(os.path.join(d, sub))\n"
+        "for n, (rgb, dep, t) in enumerate(frames):\n"
+        "    png.write(os.path.join(d, f'rgb/{n}.png'), rgb)\n"
+        "    png.write(os.path.join(d, f'depth/{n}.png'), dep)\n"
+        "open(os.path.join(d, 'rgb.txt'), 'w').write('0.0 rgb/0.png\\n0.1 rgb/1.png\\n')\n"
+        "open(os.path.join(d, 'depth.txt'), 'w').write('0.0 depth/0.png\\n0.1 depth/1.png\\n')\n"
+        "ts = tum.TumSequence(d, distortion=tum.TUM_DISTORTION['freiburg1'])\n"
+        "assert len(ts) == 2 and ts[1].depth.dtype == np.uint16 and ts.undistort\n"
+        "assert len(list(live.LiveSource(d, idle_timeout=0.05).frames())) == 2\n"
+        "snapshot.save(slam, os.path.join(d, 's.npz'))\n"
+        "assert snapshot.restore(os.path.join(d, 's.npz'), device='cpu')._frame_count == 2\n"
         "ref = pathlib.Path('rgbid_tpu').resolve()\n"
         "files = [getattr(m, '__file__', None) for m in list(sys.modules.values())]\n"
         "ours = [f for f in files if f and pathlib.Path(f).resolve().is_relative_to(ref)]\n"
