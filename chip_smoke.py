@@ -31,7 +31,12 @@ otherwise. Phases, each printing its own lines:
    IC lagged step and the IC exact step at sigma_iters 2 and 3 (whose grid
    barriers a block leaving alone would deadlock): a previous step just
    under the tolerance leaves the output equal to it bit for bit and the
-   workspace as found, one just over runs;
+   workspace as found, one just over runs; then the solve alone
+   (``irls_solve_step``, csrc/irls_solve.cu, the row-sharded tracker's
+   end of an iteration) against ``ic_update`` on a tracked, a few-valid and
+   a non-positive-definite result, the split step (result-only launch,
+   ``allreduce_irls`` over one rank, the solve) bit-equal to the fused
+   ``esm_irls_step`` at every level's layout, and its early exit;
 4. main paths: SlamSystem over synthetic VGA sequences with known ground
    truth, five times, and a sixth over a closed loop (item 6): the ESM configuration with the consensus off, the
    default configuration (``SlamConfig()``, back end off: ESM with the
@@ -150,7 +155,25 @@ otherwise. Phases, each printing its own lines:
    saved after ``finish()`` and restored: loop edges and BoW entries
    equal, no thread error after ``finish()`` on either.
 
-Phases 4, 8-11, [preset] and 13-15 each drive the main path with the launch
+16. [viz]: ``SlamConfig()`` (back end off) over the rigid sequence with
+   the live viewer on (every 3rd frame, the map pane every snapshot) and
+   off: poses and records bit-equal, host reads and launches per frame
+   equal, no render error, every published snapshot rendered or dropped,
+   live.png decoded by the port's PNG reader; the host ms per render. Then
+   ``--viz --live-viz`` through the command line: trajectory.png,
+   map_topdown.png and live.png decode.
+17. [spmd]: the kernels are built here before any rank starts; then the
+   VGA frame pair under ``SlamConfig()``'s tracking settings (4 levels,
+   strides (2, 2, 1, 1), the consensus on) through ``ShardedTracker`` on 1
+   rank over NCCL (bit-equal to ``Tracker``), and 2 and 4 ranks over gloo,
+   every rank on this card (within tests/test_torch_parallel.py's
+   tolerances of ``Tracker``); every rank's result the same bits, exact
+   launch counts per rank (one solve launch per IRLS iteration); ms per
+   tracked pair beside ``Tracker``'s and the all-reduces per pair. At 1
+   and 2 ranks ``shard_reloc_batch`` equals ``score_pairs`` pair by pair.
+   A rank that fails ends the run with its exception.
+
+Phases 4, 8-11, [preset] and 13-17 each drive the main path with the launch
 counts set to 0 just before and read just after. The second-to-last line is
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Imports
 no JAX and no OpenCV: phases 4-9 render their scenes here with numpy and
@@ -194,8 +217,10 @@ from rgbid_tpu_torch.reference_cpu import odometry
 from rgbid_tpu_torch.tracking import consensus
 from rgbid_tpu_torch.tracking.step import ProcessFrame, decode_frame, frame_pyramid, gray_from_rgb
 from rgbid_tpu_torch.tracking.step import pack_frame
-from rgbid_tpu_torch.tracking.tracker import template_level
-from rgbid_tpu_torch.utils import snapshot
+from rgbid_tpu_torch.parallel import ShardedTracker, make_mesh, shard_reloc_batch
+from rgbid_tpu_torch.parallel.launch import run_ranks
+from rgbid_tpu_torch.tracking.tracker import Tracker, template_level
+from rgbid_tpu_torch.utils import live_view, snapshot
 
 N_FRAMES = 36
 # ATE bound of every main-path run on the rigid sequence: max(2 x the CPU
@@ -606,20 +631,20 @@ def _scaled_err(k: torch.Tensor, p: torch.Tensor):
     return float(d.max()), float((d / tol).max())
 
 
-def _frame_pair(intr: Intrinsics, cfg, geo_min: int = 0):
-    """Keyframe + current pyramid on the card from two frames of the scene
-    (ESM or IC templates, as ``cfg`` says), and the ground-truth relative
-    pose as the linearization point."""
+def _frame_pair(intr: Intrinsics, cfg, geo_min: int = 0, device="cuda"):
+    """Keyframe + current pyramid on the card (or ``device``) from two
+    frames of the scene (ESM or IC templates, as ``cfg`` says), and the
+    ground-truth relative pose as the linearization point."""
     scene = make_scene(0)
     rng = np.random.default_rng(5)
     gt = camera_path(N_FRAMES)
     f0 = render(scene, intr, gt[0], rng)
     f1 = render(scene, intr, gt[3], rng)
     cfg = cfg.override(**{"tracking.esm_geo_min_level": geo_min})
-    step = ProcessFrame(intr, cfg, "cuda")
-    kf = step.init_keyframe(torch.from_numpy(pack_frame(*f0)).cuda())
-    cur = frame_pyramid(torch.from_numpy(pack_frame(*f1)).cuda(), cfg)
-    T = torch.from_numpy(np.linalg.inv(gt[3]) @ gt[0]).float().cuda()
+    step = ProcessFrame(intr, cfg, device)
+    kf = step.init_keyframe(torch.from_numpy(pack_frame(*f0)).to(device))
+    cur = frame_pyramid(torch.from_numpy(pack_frame(*f1)).to(device), cfg)
+    T = torch.from_numpy(np.linalg.inv(gt[3]) @ gt[0]).float().to(device)
     return kf, cur, T, step.intrs
 
 
@@ -641,6 +666,10 @@ F32_FLOPS = 67e12
 # warp's group sums (~4).
 FLOPS_PER_PIXEL = {"esm": 385, "ic_normal": 256, "ic_sigma": 79, "fusion": 220,
                    "esm_stratified": 486}
+# The solve alone, per launch: the damped 6x6 Cholesky and its two
+# triangular solves (~150), the SE(3) exp (~90), T . exp (112) and two
+# Newton polar iterations (~250).
+SOLVE_FLOPS = 600
 
 
 def _tensors(x):
@@ -1461,6 +1490,87 @@ def phase_early_exit():
     return ok, timing
 
 
+def _solve_case(label: str, T, result: torch.Tensor, damping: float, moves: bool):
+    """``irls_solve_step`` against its plain version (``ic_update`` on the
+    same 48 floats): the result copied bit for bit, T' and delta within
+    1e-6, delta zero where the update must be suppressed (``moves``
+    False), and a rerun bit-identical."""
+    k = kernels.irls_solve_step(T, result, damping)
+    k2 = kernels.irls_solve_step(T, result, damping)
+    p = kernels._plain_step(T, kernels.unpack_result(result), damping)
+    torch.cuda.synchronize()
+    copied = bool(torch.equal(kernels.pack_result(k.result), result))
+    dT, dd = _step_errs(k, p.T, p.delta)
+    zero = not bool(k.delta.any())
+    same = all(torch.equal(x, y) for x, y in zip(_flat(k), _flat(k2)))
+    good = copied and dT <= 1e-6 and dd <= 1e-6 and zero == (not moves) and same
+    print(f"[kernels] irls_solve {label}: n_valid {int(result[45])} result copied {copied}, T' "
+          f"max|d| {dT:.1e} delta max|d| {dd:.1e} (tol 1e-6), delta zero {zero} (expected "
+          f"{not moves}), rerun bit-identical {same} {'OK' if good else 'FAIL'}")
+    return good, max(dT, dd)
+
+
+def phase_solve(records):
+    """The split iteration of the row-sharded tracker on the card:
+    ``irls_solve_step`` against its plain version on a tracked step, a
+    few-valid step (n_valid <= 100: delta zero) and a non-positive-definite
+    H (delta zero); then, on the same inputs and at every level's layout,
+    the result-only launch + ``allreduce_irls`` over one rank + the solve
+    gives the fused ``esm_irls_step``'s output bit for bit; then the early
+    exit in the solve launch (``_exit_case``). Returns (ok, timing)."""
+    cfg = default_config()
+    tc = cfg.tracking
+    strides = tuple(tc.template_stride) + (1,) * tc.levels
+    s2i = torch.full((), 0.01, device="cuda")
+    s2x = torch.full((), 0.0025, device="cuda")
+    kf, cur, T, intrs = _frame_pair(TUM_FR1, cfg)
+    damping = tc.damping
+
+    def level_args(lvl, mask=None):
+        kl, pts = template_level(kf.levels[lvl], intrs[lvl], strides[lvl])
+        cap = tc.occ_gate_cap if lvl <= tc.occ_gate_cap_level else 0.0
+        return (T, kl.intensity, pts, kl.mask if mask is None else mask, kl.jac,
+                cur[lvl].stack7, intrs[lvl], tc.student_t_nu, s2i, s2x, tc.use_geometric,
+                tc.gate_sigmas, tc.occlusion_gate, cap)
+
+    l0 = level_args(0)
+    tracked = kernels.esm_result(*l0)
+    few = kernels.esm_result(*level_args(0, _few_valid(l0[3])))
+    not_pd = tracked.clone()
+    not_pd[0] = -5.0  # H[0, 0]: the Cholesky factorization fails
+    ok, err = True, 0.0
+    for label, res, moves in (("tracked L0", tracked, True), ("few-valid L0", few, False),
+                              ("H not positive definite", not_pd, False)):
+        good, e = _solve_case(label, T, res, damping, moves)
+        ok &= good
+        err = max(err, e)
+    split_eq = []
+    for lvl in range(tc.levels - 1, -1, -1):
+        a = level_args(lvl)
+        fused = kernels.esm_irls_step(*a, damping=damping)
+        split = kernels.irls_solve_step(
+            T, kernels.allreduce_irls(kernels.esm_result(*a), lambda t: t), damping)
+        torch.cuda.synchronize()
+        split_eq.append(all(torch.equal(x, y) for x, y in zip(_flat(fused), _flat(split))))
+    ok &= all(split_eq)
+    print(f"[kernels] irls_solve split step (result-only launch + allreduce_irls over one rank "
+          f"+ solve) bit-equal to the fused esm_irls_step at L{tc.levels - 1}..L0: {split_eq} "
+          f"{'OK' if all(split_eq) else 'FAIL'}")
+    good, _ = _exit_case("irls_solve", lambda p, t, sl: kernels.irls_solve_step(
+        T, tracked, damping, prev=p, tol=t, slot=sl), kernels.workspace(T.device), 0, EXIT_TOL)
+    ok &= good
+    records["irls_solve"] = dict(
+        name="irls_solve", route="cuda", source="rgbid_tpu_torch/csrc/irls_solve.cu",
+        replaces="rgbid_tpu/ops/gauss_newton.py:534", max_abs_err=err,
+    )
+    timing = [("irls_solve", "48 floats", lambda a: kernels.irls_solve_step(a[0], a[1],
+                                                                            damping).out,
+               lambda a: kernels._plain_step(a[0], kernels.unpack_result(a[1]), damping),
+               (T, tracked), float(SOLVE_FLOPS), "result (48), T (16) -> out (70)", (T, tracked))]
+    print(f"[kernels] irls_solve: {'OK' if ok else 'FAIL'}")
+    return ok, timing
+
+
 def phase_times(records, timing):
     """Each kernel and its plain version, timed in turns (plain, kernel,
     kernel, plain) with CUDA events, the kernel's device time with CUDA
@@ -1587,6 +1697,7 @@ COUNTERS = {
     "ic_sigma_stats": (kernels.ic_sigma_stats, "launches"),
     "ic_sigma_phases": (kernels.ic_normal_eq, "sigma_phases"),
     "fusion": (fusion.fuse_frame, "launches"),
+    "irls_solve": (kernels.irls_solve_step, "launches"),
 }
 
 
@@ -3064,6 +3175,222 @@ def phase_snapshot(smi: str):
     return ok, {k: counts[k] + loop_counts[k] for k in COUNTERS}, scorer
 
 
+# ---------------------------------------------------------------------------
+# The live viewer and the plots; the row-sharded tracker and the sharded scorer
+
+VIZ_EVERY = 3
+SPMD_WORLDS = ((1, "nccl", "cuda"), (2, "gloo", "cuda:0"), (4, "gloo", "cuda:0"))
+SPMD_RELOC_WORLDS = (1, 2)
+SPMD_REPS = 5
+SPMD_T_TOL = 5e-5  # tests/test_torch_parallel.py under the consensus
+SPMD_RELOC_PAIRS = ((0, 3), (3, 0), (0, 12))
+
+
+def _counted_run(slam, frames):
+    """process_frame over ``frames``; per frame, the host reads and the
+    launch counts it added (host integers: no sync)."""
+    reads, launches = [], []
+    for rgb, depth, t in frames:
+        r0, c0 = slam.host_reads, {k: getattr(w, a) for k, (w, a) in COUNTERS.items()}
+        slam.process_frame(rgb, depth, t)
+        reads.append(slam.host_reads - r0)
+        launches.append({k: getattr(w, a) - c0[k] for k, (w, a) in COUNTERS.items()})
+    torch.cuda.synchronize()
+    return reads, launches
+
+
+def phase_viz(smi: str):
+    """The live viewer on the main path (the module docstring, item 16).
+    Returns (ok, the launch counts of the counted runs)."""
+    frames, _ = make_sequence()
+    out_dir = os.path.join(SMOKE_BUILD, "chip_smoke_viz")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    base = default_config()
+    runs = {}
+    _zero_counts()
+    for label, cfg in (("off", base), ("on", base.override(**{
+            "viz.enabled": True, "viz.every_n": VIZ_EVERY, "viz.map_every": 1,
+            "viz.out_dir": os.path.join(out_dir, "live")}))):
+        slam = port.SlamSystem(TUM_FR1, cfg, device="cuda")
+        t0 = time.perf_counter()
+        reads, launches = _counted_run(slam, frames)
+        ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        t1 = time.perf_counter()
+        slam.finish()
+        runs[label] = (slam, reads, launches, ms, (time.perf_counter() - t1) * 1e3)
+    counts = _read_counts()
+    off, on = runs["off"][0], runs["on"][0]
+    v = on.viewer
+    published = sum(1 for i in range(1, len(frames)) if (i + 1) % VIZ_EVERY == 0)
+    live_png = os.path.join(out_dir, "live", "live.png")
+    live = png.read_color(live_png) if os.path.exists(live_png) else None
+    h, w = TUM_FR1.height, TUM_FR1.width
+    # The command line's --viz plots and --live-viz viewer, in-process.
+    cli_dir = os.path.join(out_dir, "cli")
+    _zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--synthetic", "40", "--max-frames", "12", "--out-dir", cli_dir, "--viz",
+                       "--live-viz", os.path.join(cli_dir, "live"), "--quiet", "--set",
+                       "backend.enabled=false"])
+    cli_counts = _read_counts()
+    plots = {f: png.read_color(os.path.join(cli_dir, f)).shape
+             for f in ("trajectory.png", "map_topdown.png", os.path.join("live", "live.png"))
+             if os.path.exists(os.path.join(cli_dir, f))}
+    checks = {
+        "poses bit-equal": all(np.array_equal(a, b) for a, b in zip(on.poses(), off.poses())),
+        "records equal": [dict(r, ms=0) for r in on.stats] == [dict(r, ms=0) for r in off.stats],
+        "reads per frame equal": runs["on"][1] == runs["off"][1],
+        "launches per frame equal": runs["on"][2] == runs["off"][2],
+        "launched": counts["esm_normal_eq"] > 0 and counts["fusion"] > 0,
+        "errors 0": v.errors == 0,
+        "rendered + dropped = published": v.rendered + v.dropped == published and v.rendered > 0,
+        "live.png decodes": live is not None and live.shape == (2 * h + max(w, 240), 2 * w, 3),
+        "cli": rc == 0 and plots.get("trajectory.png") == (660, 660, 3)
+        and plots.get("map_topdown.png") == (660, 660, 3) and len(plots) == 3
+        and cli_counts["esm_normal_eq"] > 0,
+    }
+    ok = all(checks.values())
+    rms = np.asarray(v.render_ms)
+    print(f"[viz] SlamConfig() back end off, rigid sequence ({len(frames)} VGA frames) with the "
+          f"live viewer (every_n {VIZ_EVERY}, map_every 1) against the same run without it: "
+          f"published {published}, rendered {v.rendered}, dropped {v.dropped}, errors "
+          f"{v.errors}; host reads per frame {sum(runs['on'][1])} / {sum(runs['off'][1])} in all "
+          f"(on / off); ms/frame {runs['on'][3]:.2f} on, {runs['off'][3]:.2f} off; finish() "
+          f"{runs['on'][4]:.1f} ms on (the viewer drains), {runs['off'][4]:.1f} ms off")
+    if len(rms):
+        print(f"[viz] host ms per render ({2 * w}x{2 * h + max(w, 240)} panel: both panes, the "
+              f"map pane with up to {live_view.MAP_POINTS} cloud points, PNG encode and rename, "
+              f"on the viewer's thread): median "
+              f"{np.median(rms):.1f}, max {rms.max():.1f} over {len(rms)}; {smi}")
+    print(f"[viz] --viz --live-viz in-process: rc {rc}, decoded {plots}; launches {cli_counts}")
+    print(f"[viz] checks {checks} {'OK' if ok else 'FAIL'}")
+    return ok, {k: counts[k] + cli_counts[k] for k in COUNTERS}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _spmd_rank(rank: int, world: int, dev: torch.device, reloc_planes):
+    """One rank of [spmd] (run by ``run_ranks``): the VGA frame pair under
+    ``SlamConfig()``'s tracking settings through ``ShardedTracker`` (the
+    launch counts zeroed just before and read just after), the one-process
+    ``Tracker`` on the same inputs, both timed in turns, and with
+    ``reloc_planes`` the sharded scorer against ``score_pairs``."""
+    import torch.distributed as dist
+
+    cfg = default_config()
+    tc = cfg.tracking
+    kf, cur, T_gt, _ = _frame_pair(TUM_FR1, cfg, tc.esm_geo_min_level, device=dev)
+    T0 = torch.eye(4, device=dev)
+    hist = np.zeros((tc.consensus_bins,), np.float32)
+    mesh = make_mesh(world)
+    one = Tracker(TUM_FR1, tc, tc.jac_dtype)
+    st = ShardedTracker(mesh, TUM_FR1, tc, tc.jac_dtype)
+    ref = one.track(kf.levels, cur, T0, hist)  # warm-up, and the reference
+    st.track(kf.levels, cur, T0)
+    _sync(dev)
+    dist.barrier()
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
+    n0 = st.allreduces
+    res = st.track(kf.levels, cur, T0)
+    _sync(dev)
+    counts = {k: getattr(w, a) for k, (w, a) in COUNTERS.items()}
+    allreduces = st.allreduces - n0
+    one_ms, sharded_ms = [], []
+    for _ in range(SPMD_REPS):
+        t0 = time.perf_counter()
+        one.track(kf.levels, cur, T0, hist)
+        _sync(dev)
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        dist.barrier()
+        t0 = time.perf_counter()
+        st.track(kf.levels, cur, T0)
+        _sync(dev)
+        sharded_ms.append((time.perf_counter() - t0) * 1e3)
+    out = dict(result=res, ref=ref, T_gt=T_gt, counts=counts, allreduces=allreduces,
+               one_ms=float(np.median(one_ms)), sharded_ms=float(np.median(sharded_ms)))
+    if reloc_planes is not None:
+        temps, curs = reloc_planes
+        scorer = RelocScorer(TUM_FR1, cfg, dev)
+        out["reloc"] = (shard_reloc_batch(scorer, mesh, temps, curs),
+                        scorer.score_pairs(temps, curs))
+    return out
+
+
+def _same_result(a, b) -> bool:
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor)
+               else np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+
+
+def phase_spmd(smi: str):
+    """The row-sharded tracker and the sharded scorer across ranks (the
+    module docstring, item 17). Returns (ok, the ranks' launch counts)."""
+    cfg = default_config()
+    frames, _ = make_sequence()
+    level = RelocScorer(TUM_FR1, cfg, "cpu").level
+    planes = {i: _host_planes(frames[i], cfg, level) for pair in SPMD_RELOC_PAIRS for i in pair}
+    reloc = ([planes[i] for i, _ in SPMD_RELOC_PAIRS], [planes[j] for _, j in SPMD_RELOC_PAIRS])
+    total = dict.fromkeys(COUNTERS, 0)
+    ok = True
+    for world, backend, device in SPMD_WORLDS:
+        t0 = time.perf_counter()
+        outs = run_ranks(_spmd_rank, world, backend, device,
+                         reloc if world in SPMD_RELOC_WORLDS else None)
+        wall = time.perf_counter() - t0
+        r0 = outs[0]
+        res, ref = r0["result"], r0["ref"]
+        tc = cfg.tracking
+        per_frame = sum(tc.iters[: tc.levels])
+        iters = per_frame + res.rerun_iters + (per_frame if res.rescue_ran else 0)
+        counts = r0["counts"]
+        checks = {
+            "ranks bit-identical": all(_same_result(o["result"], res) for o in outs[1:]),
+            "launches": all(o["counts"] == counts for o in outs)
+            and counts["irls_solve"] == iters
+            and counts["esm_normal_eq"] == iters + (2 if res.rescue_ran else 0)
+            and counts["esm_stratified"] == 2,
+        }
+        if world == 1:
+            checks["bit-equal to Tracker"] = _same_result(res, ref)
+        H = ref.H.cpu().numpy()
+        dT = float((res.T - ref.T).abs().max())
+        gt_mm = float(torch.linalg.vector_norm(res.T[:3, 3] - r0["T_gt"][:3, 3])) * 1e3
+        dH = np.abs(res.H.cpu().numpy() - H)
+        h_share = float((dH / (2e-4 * np.abs(H) + 1e-5 * np.abs(H).max())).max())
+        checks["within tolerances of Tracker"] = (
+            dT <= SPMD_T_TOL and h_share <= 1.0
+            and np.allclose(res.n_valid.cpu().numpy(), ref.n_valid.cpu().numpy(), rtol=1e-6,
+                            atol=0)
+            and abs(float(res.overlap) - float(ref.overlap)) <= 1e-5 * abs(float(ref.overlap))
+            and np.array_equal(res.cons_excluded, ref.cons_excluded))
+        if "reloc" in r0:
+            checks["shard_reloc_batch = score_pairs"] = all(
+                all(np.array_equal(a, b) for a, b in zip(*o["reloc"])) for o in outs)
+        for k in COUNTERS:
+            total[k] += sum(o["counts"][k] for o in outs)
+        good = all(checks.values())
+        ok &= good
+        print(f"[spmd] {world} rank(s) over {backend} on {device}: VGA pair, SlamConfig() "
+              f"tracking (4 levels, strides {tuple(tc.template_stride)}, consensus on): T "
+              f"max|d| vs Tracker {dT:.2e} (tol {SPMD_T_TOL:g}), translation {gt_mm:.3f} mm "
+              f"from ground truth, H {h_share:.2f} of tol, "
+              f"n_valid {float(res.n_valid[0]):.0f} ({float(ref.n_valid[0]):.0f}), "
+              f"cons_excluded {res.cons_excluded.tolist()}, rerun iterations "
+              f"{res.rerun_iters}, rescue {res.rescue_ran}; launches on rank 0 {counts}; "
+              f"all-reduces per tracked pair {r0['allreduces']}; wall {wall:.1f} s with the "
+              f"ranks' start")
+        print(f"[spmd] {world} rank(s): ms per tracked pair, median of {SPMD_REPS}: sharded "
+              f"{r0['sharded_ms']:.2f}, one-process Tracker {r0['one_ms']:.2f} (in the same "
+              f"rank); with several ranks on one card over gloo this measures the wrapper and "
+              f"gloo's host copies, not an interconnect; {smi}")
+        print(f"[spmd] {world} rank(s) checks {checks} {'OK' if good else 'FAIL'}")
+    return ok, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -3079,8 +3406,9 @@ def main() -> int:
     r_ok, r_timing = phase_scorer_layouts(records)
     b_ok, b_timing = phase_bf16_kernels(records)
     e_ok, e_timing = phase_early_exit()
-    timing += s_timing + ic_timing + r_timing + b_timing + e_timing
-    k_ok = k_ok and s_ok and ic_ok and r_ok and b_ok and e_ok
+    so_ok, so_timing = phase_solve(records)
+    timing += s_timing + ic_timing + r_timing + b_timing + e_timing + so_timing
+    k_ok = k_ok and s_ok and ic_ok and r_ok and b_ok and e_ok and so_ok
     runs = [("esm consensus off", slice_config(), False), ("default", default_config(), False),
             ("default mover", default_config(), True), ("ic lagged", ic_config("lagged"), False),
             ("ic exact", ic_config("exact"), False)]
@@ -3120,6 +3448,14 @@ def main() -> int:
     for run in (t_launches, l_launches, sn_launches):
         for k in COUNTERS:
             total[k] += run[k]
+    # The live viewer and the plots; the row-sharded tracker and the
+    # sharded scorer across ranks (their launches counted in the ranks).
+    v_ok, v_launches = phase_viz(smi)
+    sp_ok, sp_launches = phase_spmd(smi)
+    m_ok &= v_ok and sp_ok
+    for run in (v_launches, sp_launches):
+        for k in COUNTERS:
+            total[k] += run[k]
     # The storage, codec and early-exit knobs: SlamConfig.preset("real-v5e")
     # and the codecs on the main path, then each knob's ms/frame.
     p_ok, p_launches, p_scorer = phase_preset()
@@ -3137,13 +3473,14 @@ def main() -> int:
     phase_profile(preset_config(), label="preset real-v5e")
     phase_decode_kernels(first_packed)
     # Counts summed over the six main-path runs, the counted back-end-on run,
-    # the relocalization run, the gauntlet rows and the command line. The scale step runs on
+    # the relocalization run, the gauntlet rows, the command line, the
+    # real-data, viewer and preset runs and the ranks of [spmd]. The scale step runs on
     # the main path as phases of the IC exact launches: its ``launches`` is
     # that count, and its standalone launches (0 on the main path) stand
     # beside it.
     for key, counter in (("esm", "esm_normal_eq"), ("esm_stratified", "esm_stratified"),
                          ("fusion", "fusion"), ("ic_normal", "ic_normal_eq"),
-                         ("ic_sigma", "ic_sigma_phases")):
+                         ("ic_sigma", "ic_sigma_phases"), ("irls_solve", "irls_solve")):
         records[key]["launches"] = total[counter]
     # The ESM kernel's launches on the loop-verification path, counted by
     # the scorer (they never enter the per-frame count), stand beside the
@@ -3158,7 +3495,8 @@ def main() -> int:
                           loop_optimize_ms=loop_out["optimize_ms"],
                           orb_ms=float(np.median(list(orb_ms.values()))), **backend_record)
     records["ic_sigma"]["standalone_launches"] = total["ic_sigma_stats"]
-    kern = [records[k] for k in ("esm", "esm_stratified", "fusion", "ic_normal", "ic_sigma")]
+    kern = [records[k] for k in ("esm", "esm_stratified", "fusion", "ic_normal", "ic_sigma",
+                                 "irls_solve")]
     print(json.dumps({"kernels": kern}))
     if not (k_ok and m_ok):
         print(f"chip_smoke: FAILED (kernels {'ok' if k_ok else 'failed'}, main "

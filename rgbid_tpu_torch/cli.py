@@ -11,9 +11,9 @@ ground truth: the synthetic sequence's, or a TUM directory's
 groundtruth.txt associated by timestamp) ATE/RPE metrics printed as JSON.
 The system runs on ``--device`` (the card by default). ``--snapshot``
 writes the JAX package's snapshot format and ``--resume`` reads it, from
-either package. ``--viz`` and ``--live-viz`` need the plots and the live
-viewer, which are not ported yet, and raise ``NotImplementedError``
-before any work is done.
+either package. ``--viz`` writes ``trajectory.png`` and ``map_topdown.png``
+into ``--out-dir``; ``--live-viz DIR`` turns the live viewer on
+(``viz.enabled``), which keeps ``DIR/live.png`` up to date while it runs.
 """
 
 from __future__ import annotations
@@ -26,13 +26,6 @@ import sys
 import time
 
 import numpy as np
-
-# The options whose modules are not ported yet: (attribute, flag).
-UNPORTED = (
-    ("viz", "--viz"),
-    ("live_viz", "--live-viz"),
-)
-
 
 def _parse_set(values):
     out = {}
@@ -87,8 +80,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval", action="store_true", help="print ATE/RPE vs ground truth")
     ap.add_argument("--voxel", type=float, default=0.01, help="map voxel downsample (m)")
     ap.add_argument("--map-format", default="ply", choices=["ply", "pcd"], help="map export format")
-    ap.add_argument("--viz", action="store_true", help="write trajectory/map PNGs (not ported)")
-    ap.add_argument("--live-viz", metavar="DIR", default=None, help="live 3-pane viewer (not ported)")
+    ap.add_argument("--viz", action="store_true", help="write trajectory/map PNGs")
+    ap.add_argument(
+        "--live-viz",
+        metavar="DIR",
+        default=None,
+        help="live 3-pane viewer: periodically write DIR/live.png while running",
+    )
     ap.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     ap.add_argument("--quiet", action="store_true")
     return ap
@@ -96,10 +94,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    for attr, flag in UNPORTED:
-        if getattr(args, attr) not in (None, False):
-            raise NotImplementedError(
-                f"rgbid_tpu_torch does not run {flag} yet (ROADMAP Queue 1 #8)")
 
     from .core.camera import DEFAULT, Intrinsics
     from .core.config import SlamConfig
@@ -118,6 +112,8 @@ def main(argv=None):
     overrides = _parse_set(args.set)
     if overrides:
         cfg = cfg.override(**{k: tuple(v) if isinstance(v, list) else v for k, v in overrides.items()})
+    if args.live_viz:
+        cfg = cfg.override(**{"viz.enabled": True, "viz.out_dir": args.live_viz})
 
     # Frame source.
     gt_poses, seq = None, None
@@ -223,6 +219,18 @@ def main(argv=None):
         slam.save_trajectory(os.path.join(out_dir, "trajectory.txt"))
         slam.save_map(os.path.join(out_dir, f"map.{args.map_format}"), voxel=args.voxel)
         result["out_dir"] = out_dir
+        if args.viz:
+            from .utils import viz
+
+            trajs = [("estimate", slam.poses())]
+            if gt_poses is not None:
+                gt0 = np.linalg.inv(gt_poses[0])
+                trajs.append(("ground truth", [gt0 @ T for T in gt_poses]))
+            viz.plot_trajectory(trajs, os.path.join(out_dir, "trajectory.png"),
+                                keyframe_poses=[kf.T_wk for kf in slam.manager.keyframes])
+            cloud = slam.map_points(voxel=args.voxel)
+            if len(cloud):
+                viz.plot_map_topdown(cloud, os.path.join(out_dir, "map_topdown.png"))
 
     if args.snapshot:
         from .utils import snapshot

@@ -296,7 +296,8 @@ def encode(img: np.ndarray, level: int = 1, filt: int = 0) -> bytes:
     h, w = img.shape[:2]
     rows = np.empty((h, 1 + body.shape[1]), np.uint8)
     rows[:, 0] = filt
-    rows[:, 1:] = _filter_rows(body, bpp, filt)
+    # Filter 0 (None) stores the bytes as they are.
+    rows[:, 1:] = body if filt == 0 else _filter_rows(body, bpp, filt)
     ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))

@@ -129,8 +129,8 @@ class Keyframe:
     timestamp: float
     T_wk: np.ndarray  # camera-to-world pose (updated by the pose graph)
     rgb: np.ndarray  # founding frame's image, (H, W, 3) or gray (H, W) u8
-    # Founding frame's raw depth (H, W) u16; only the JAX package's live
-    # viewer fills it.
+    # Founding frame's raw depth (H, W) u16; filled when the live viewer is
+    # on (its keyframe pane).
     depth: Optional[np.ndarray] = None
     cloud: Optional[np.ndarray] = None  # (N, 6) xyz+rgb in keyframe coordinates
     # Place-recognition payload (filled by the back end).

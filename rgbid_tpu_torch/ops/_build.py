@@ -27,7 +27,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in ("esm_normal_eq.cu", "esm_stratified.cu", "fusion.cu",
-                                             "ic_normal_eq.cu"))
+                                             "ic_normal_eq.cu", "irls_solve.cu"))
 HEADERS = tuple(_PKG / "csrc" / f for f in ("esm_pixel.cuh", "fusion_pixel.cuh",
                                             "irls_common.cuh", "irls_solve.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "rgbid_tpu_torch"
@@ -155,11 +155,14 @@ class Library:
         lib.ic_sigma_launch.restype = I
         lib.ic_irls_launch.argtypes = [IcParams, I, I, I] + [P] * 19
         lib.ic_irls_launch.restype = I
+        lib.irls_solve_launch.argtypes = [ctypes.c_float, ctypes.c_float] + [P] * 6
+        lib.irls_solve_launch.restype = I
         self.esm_irls_launch = lib.esm_irls_launch
         self.esm_stratified_launch = lib.esm_stratified_launch
         self.fusion_launch = lib.fusion_launch
         self.ic_sigma_launch = lib.ic_sigma_launch
         self.ic_irls_launch = lib.ic_irls_launch
+        self.irls_solve_launch = lib.irls_solve_launch
         self._lib = lib
 
 

@@ -21,6 +21,13 @@
   sums as one launch of ``csrc/esm_stratified.cu``; no Pallas kernel is
   behind it, it replaces the XLA reduction
   ``rgbid_tpu/ops/gauss_newton.py::stratified_normal_eq``.
+- ``irls_solve_step``: the end of one IRLS iteration alone (the damped 6x6
+  solve and the pose update from a 48-float result) as one launch of
+  ``csrc/irls_solve.cu``, for the row-sharded tracker: its iteration is
+  ``esm_result`` on every rank's band (the result-only ESM launch, as a
+  48-float vector), ``allreduce_irls`` across the ranks, then this launch.
+  No Pallas kernel is behind it; it replaces the XLA ``ic_update`` after
+  ``gauss_newton.allreduce_irls`` in the JAX package's sharded tracker.
 
 On a CPU tensor each runs its plain PyTorch version (ops/gauss_newton.py),
 and a step adds ``ic_update``; on a CUDA tensor it launches its kernel or
@@ -41,9 +48,10 @@ returns ``prev``. The host enqueues every launch of the budget and reads
 nothing. Steps given a level ``slot`` are counted per slot: launched on the
 host, run (not skipped) on the device (``iteration_counts``).
 ``esm_residuals_and_normal_eq.launches``, ``ic_normal_eq.launches``,
-``ic_sigma_stats.launches`` and ``esm_stratified.launches`` count kernel
-launches, whichever wrapper made them; ``ic_normal_eq.sigma_phases`` counts
-the scale steps run inside IC launches.
+``ic_sigma_stats.launches``, ``esm_stratified.launches`` and
+``irls_solve_step.launches`` count kernel launches, whichever wrapper made
+them; ``ic_normal_eq.sigma_phases`` counts the scale steps run inside IC
+launches.
 
 The launches share one per-card workspace (``workspace``): a (max_blocks,
 32) block partials buffer, a (max_blocks + 1, 3) buffer of scale-step rows
@@ -695,3 +703,112 @@ def ic_irls_step(
 ic_sigma_stats.launches = 0
 ic_normal_eq.launches = 0
 ic_normal_eq.sigma_phases = 0
+
+
+# ---------------------------------------------------------------------------
+# The row-sharded iteration: csrc/irls_solve.cu
+
+# irls::kResult: H (36), b (6), sigma2_int, sigma2_xi, error, n_valid, inlier_frac, 0.
+RESULT = 48
+
+
+def pack_result(res: IrlsResult) -> torch.Tensor:
+    """The 48-float result layout of an evaluation (csrc/irls_common.cuh)."""
+    scalars = torch.stack([res.sigma2_int, res.sigma2_xi, res.error, res.n_valid,
+                           res.inlier_frac, torch.zeros_like(res.error)])
+    return torch.cat([res.H.reshape(36), res.b.reshape(6), scalars])
+
+
+def unpack_result(v: torch.Tensor) -> IrlsResult:
+    H, b, scalars = v.split([36, 6, 6])
+    s2i, s2x, err, n_valid, inl, _ = scalars.unbind()
+    return IrlsResult(H.view(6, 6), b, s2i, s2x, err, n_valid, inl)
+
+
+def esm_result(
+    T: torch.Tensor,
+    kf_int: torch.Tensor,
+    kf_points: tuple,
+    kf_mask: torch.Tensor,
+    kf_grads: torch.Tensor,
+    cur_stack: torch.Tensor,
+    intr: Intrinsics,
+    nu: float,
+    sigma2_int: torch.Tensor,
+    sigma2_xi: torch.Tensor,
+    use_geometric: bool = True,
+    gate_sigmas: float = 3.0,
+    occlusion_gate: bool = False,
+    gate_cap: float = 0.0,
+    *,
+    prev: Optional[IrlsStep] = None,
+    tol: float = 0.0,
+) -> torch.Tensor:
+    """``esm_residuals_and_normal_eq`` as the (48,) result vector: on the card
+    the result part of the fused launch's output (no copy), on the CPU the
+    plain evaluation packed. Under the early exit (``prev``'s step norm
+    <= ``tol``) it is ``prev``'s result: the launch copies ``prev``, the
+    CPU skips the evaluation."""
+    args = (T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu,
+            sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate, gate_cap)
+    if _device_kind(T, "ESM") == "cpu":
+        if _cpu_skips(prev, tol):
+            return pack_result(prev.result)
+        return pack_result(esm_residuals_and_normal_eq_plain(*args))
+    return _esm_cuda(*args, 0.0, prev, tol).out[:RESULT]
+
+
+def allreduce_irls(res: torch.Tensor, reduce) -> torch.Tensor:
+    """The global result of per-band results (``rgbid_tpu/ops/gauss_newton.py::
+    allreduce_irls``): every field but n_valid is a per-pixel mean over the
+    band's n_valid, so the global field is sum_r x_r (n_r / N) with N the
+    sum of the n_r (at least 1), the scales clamped at 1e-12, and n_valid
+    N. ``reduce`` sums a tensor over the ranks (in place or not; every rank
+    gets the same bits). Two all-reduces: N (1 float), then the weighted
+    48 floats. With one rank the weight is n / n = 1 exactly, so the result
+    is the input bit for bit."""
+    n = res[45:46].double()
+    N = reduce(n.clone())
+    out = reduce(res.double() * (n / torch.clamp(N, min=1.0))).float()
+    return torch.cat([out[:42], torch.clamp(out[42:44], min=1e-12), out[44:45], N.float(),
+                      out[46:]])
+
+
+def irls_solve_step(
+    T: torch.Tensor,
+    result: torch.Tensor,
+    damping: float,
+    *,
+    prev: Optional[IrlsStep] = None,
+    tol: float = 0.0,
+    slot: int = -1,
+) -> IrlsStep:
+    """``ic_update`` on a (48,) result vector (``allreduce_irls``'s): the
+    solve, the updated pose and the applied step, as an IrlsStep in the
+    fused launches' layout; skipped under the early exit and counted in
+    ``slot`` as ``esm_irls_step``. CPU runs ``ic_update``; CUDA one launch
+    of one block that reads nothing back to the host."""
+    if _device_kind(T, "IRLS solve") == "cpu":
+        _count_slot(slot)
+        if _cpu_skips(prev, tol):
+            return prev
+        if slot >= 0:
+            _CPU_RUNS[slot] += 1
+        return _plain_step(T, unpack_result(result), damping)
+    dev = T.device
+    _build.require(T, "T", dev, (4, 4))
+    _build.require(result, "result", dev, (RESULT,))
+    ws = workspace(dev)
+    prev_ptr, runs_ptr = _exit_args(prev, tol, slot, ws)
+    out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
+    status = _build.library().irls_solve_launch(
+        damping, tol, result.data_ptr(), T.data_ptr(), out.data_ptr(), prev_ptr, runs_ptr,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "irls_solve_launch")
+    irls_solve_step.launches += 1
+    _count_slot(slot)
+    return _irls_step(out)
+
+
+irls_solve_step.launches = 0

@@ -24,10 +24,16 @@ def pixel_grid(h: int, w: int, device=None):
     return u, v
 
 
-def backproject_grid(xi: torch.Tensor, intr: Intrinsics):
-    """Per-pixel camera points (X, Y, Z) from an inverse-depth plane."""
+def backproject_grid(xi: torch.Tensor, intr: Intrinsics, row_offset: int = 0):
+    """Per-pixel camera points (X, Y, Z) from an inverse-depth plane.
+
+    ``row_offset`` shifts the pixel grid's v coordinate: a rank of the
+    row-sharded tracker holds one horizontal band of the keyframe and
+    backprojects it with the global row indices."""
     h, w = xi.shape
     u, v = pixel_grid(h, w, xi.device)
+    if row_offset:
+        v = v + float(row_offset)
     z = 1.0 / torch.clamp(xi, min=1e-8)
     x = (u - intr.cx) * (1.0 / intr.fx) * z
     y = (v - intr.cy) * (1.0 / intr.fy) * z

@@ -7,7 +7,9 @@ thread (loop closure + pose graph) that consumes retired keyframes,
 finalizes them and publishes corrected poses, which the front end applies
 before each frame. Both threads launch on the default stream. The back
 end's ORB features are host numpy (``backend/orb.py``): once per keyframe
-on the thread, once per relocalization attempt here.
+on the thread, once per relocalization attempt here. With ``viz.enabled``
+a third thread (``utils/live_view.py``) renders snapshots that the front
+end hands it every ``viz.every_n`` frames, made from host data only.
 """
 
 from __future__ import annotations
@@ -29,20 +31,17 @@ from .reference_cpu import odometry, se3_np
 from .tracking.step import (MotionState, ProcessFrame, StepResult, check_packed_shape,
                             gray_from_rgb, pack_frame)
 from .tracking.tracker import check_tracking_supported
+from .utils.live_view import LiveViewer
 
 
 def check_supported(cfg: SlamConfig) -> None:
-    """Raise NotImplementedError for a setting this port does not run yet,
-    naming the ROADMAP item that brings it, and ValueError for a tracking
-    setting it refuses (``check_tracking_supported``).
+    """Raise ValueError for a tracking setting this port refuses
+    (``check_tracking_supported``).
 
     ``tracking.kernel``, ``fusion.kernel`` and ``tracking.stacked_gather``
     are accepted and ignored: the tensor's device picks the kernel or its
     plain version, and the CUDA kernels gather per thread."""
     check_tracking_supported(cfg.tracking)
-    if cfg.viz.enabled:
-        raise NotImplementedError("rgbid_tpu_torch does not run viz.enabled=True yet "
-                                  "(ROADMAP Queue 1 #8)")
 
 
 def _resolve_device(device) -> torch.device:
@@ -86,6 +85,11 @@ class SlamSystem:
         self.config = cfg
         self._step = ProcessFrame(intr, cfg, self.device)
         self.backend: Optional[BackendThread] = None
+        # The live viewer (the reference's GUI thread), fed host data only.
+        self.viewer: Optional[LiveViewer] = None
+        if cfg.viz.enabled:
+            self.viewer = LiveViewer(cfg.viz.out_dir, history=cfg.viz.history,
+                                     map_every=cfg.viz.map_every)
         self.reset()
 
     @property
@@ -147,7 +151,7 @@ class SlamSystem:
         else:
             packed = self._packed(packed)
         if self._kf_state is None:
-            self._found_keyframe(packed, timestamp, np.eye(4), rgb_u8)
+            self._found_keyframe(packed, timestamp, np.eye(4), rgb_u8, depth_u16)
             T_wc = np.eye(4)
             self._record(timestamp, T_wc, None)
             return T_wc
@@ -162,13 +166,21 @@ class SlamSystem:
         self.stats[-1]["ms"] = round((time.perf_counter() - t0) * 1e3, 2)
         return T_wc
 
-    def _found_keyframe(self, packed, timestamp, T_wc, rgb_u8):
+    def _found_keyframe(self, packed, timestamp, T_wc, rgb_u8, depth_u16):
         """This frame founds a fresh keyframe at ``T_wc``: new device state,
         motion model at identity, no episode pending."""
         self._kf_state = self._step.init_keyframe(packed)
         self._motion = MotionState.initial(self.device, self.config.tracking.consensus_bins)
         self._episode_since_switch = False
-        return self.manager.new_keyframe(timestamp, T_wc, rgb_u8)
+        return self._new_keyframe(timestamp, T_wc, rgb_u8, depth_u16)
+
+    def _new_keyframe(self, timestamp, T_wc, rgb_u8, depth_u16):
+        """The host record of a new keyframe; it keeps the raw depth for the
+        viewer's keyframe pane when the viewer is on."""
+        kf = self.manager.new_keyframe(timestamp, T_wc, rgb_u8)
+        if self.viewer is not None:
+            kf.depth = np.ascontiguousarray(depth_u16)
+        return kf
 
     def _handle(self, rgb_u8, depth_u16, timestamp, packed, prev_state: DeviceKeyframe,
                 res: StepResult) -> np.ndarray:
@@ -205,11 +217,36 @@ class SlamSystem:
         else:
             self._lost_count = 0
             if switch:
-                self._on_keyframe_switch(rgb_u8, timestamp, T_eff, T_wc, res, prev_state)
+                self._on_keyframe_switch(rgb_u8, depth_u16, timestamp, T_eff, T_wc, res,
+                                         prev_state)
         self._record(timestamp, T_wc, res)
+        if self.viewer is not None and self._frame_count % max(self.config.viz.every_n, 1) == 0:
+            self._publish_viz(rgb_u8, depth_u16, lost)
         return T_wc
 
-    def _on_keyframe_switch(self, rgb_u8, timestamp, T_ck, T_wc, res: StepResult,
+    def _publish_viz(self, rgb_u8, depth_u16, lost: bool) -> None:
+        """Hand the live viewer a snapshot of host data (lossy, cheap: lists
+        and references, no device read, no rendering)."""
+        act = self.manager.active
+        self.viewer.publish({
+            "rgb": rgb_u8,
+            "depth": depth_u16,
+            "frame": self._frame_count - 1,
+            "n_keyframes": len(self.manager.keyframes),
+            "lost": lost,
+            "kf_rgb": act.rgb,
+            "kf_depth": act.depth,
+            "kf_id": act.kf_id,
+            "poses": [T for _, T in self._trajectory[-2000:]],
+            "kf_poses": [k.T_wk.copy() for k in self.manager.keyframes],
+            "kf_clouds": [(k.T_wk.copy(), k.cloud) for k in self.manager.keyframes
+                          if k.cloud is not None],
+            "depth_scale": self.config.depth_scale,
+            "min_depth": self.config.min_depth,
+            "max_depth": self.config.max_depth,
+        })
+
+    def _on_keyframe_switch(self, rgb_u8, depth_u16, timestamp, T_ck, T_wc, res: StepResult,
                             prev_state: DeviceKeyframe) -> None:
         old = self.manager.active
         # The retiring keyframe's fused planes are this step's input state.
@@ -218,7 +255,7 @@ class SlamSystem:
         # finalize runs here.
         if self.backend is None:
             self.manager.finalize(old, prev_state)
-        new = self.manager.new_keyframe(timestamp, T_wc, rgb_u8)
+        new = self._new_keyframe(timestamp, T_wc, rgb_u8, depth_u16)
         # Odometry edge old->new: T_{old<-new} = inv(T_ck). An edge whose
         # interval saw consensus activity carries the mover's drag; soften
         # it so that loop-closure corrections land there, not in the clean
@@ -273,7 +310,7 @@ class SlamSystem:
         cand = cand_kfs[best]
         T_qc = se3_np.orthonormalize(np.asarray(res.T[best], np.float64))
         T_wc = cand.T_wk @ se3_np.inv(T_qc)
-        new = self._found_keyframe(packed, timestamp, T_wc, rgb_u8)
+        new = self._found_keyframe(packed, timestamp, T_wc, rgb_u8, depth_u16)
         self.backend.add_external_loop_edge(loop_edge(res, best, cand.kf_id, new.kf_id))
         return T_wc
 
@@ -346,6 +383,8 @@ class SlamSystem:
                 self.backend.submit(self.manager.active)
             self.backend.finish()
             self._apply_pose_updates()
+        if self.viewer is not None:
+            self.viewer.close()
 
     def _apply_pose_updates(self) -> None:
         """Consume optimized keyframe poses from the back end (if any):

@@ -38,6 +38,20 @@ once; ``div_rescue`` reads the divergence once on a frame whose flagged
 strata could let it fire. Every read goes through ``read``, so a caller can
 count them. Masked template masks are built from per-level stratum-index
 planes by device ops: no host vector is uploaded.
+
+Row sharding (``parallel/tracker_spmd.py``, ESM only): ``track`` takes a
+``reduce`` that sums a tensor over the ranks, and per level the row offset
+of the rank's band in strided rows. The keyframe planes are the rank's row
+band; the current frame is whole on every rank. Each rank then sums
+across ranks at the five places where the JAX tracker psums
+(``rgbid_tpu/tracking/tracker.py:96-101, 391-392, 828-829, 964-970`` and
+``gauss_newton.py:516-517``): the affine-illumination template sums, every
+IRLS iteration (``esm_result``, ``allreduce_irls``, ``irls_solve_step``:
+three steps where the one-process iteration is one launch), the vote's
+(K, 50) sums before they are read, the rescue's level-0 evidence, and
+``kf_count``. Every host branch reads only such summed values, which are
+the same bits on every rank, so all ranks take the same branches. Without
+``reduce`` nothing of this runs: the iteration is the one fused launch.
 """
 
 from __future__ import annotations
@@ -50,7 +64,8 @@ import torch
 from ..core import se3
 from ..core.camera import Intrinsics, level_intrinsics
 from ..ops.gauss_newton import round_jac, unpack_stratified
-from ..ops.kernels import esm_irls_step, esm_residuals_and_normal_eq, esm_stratified, ic_irls_step
+from ..ops.kernels import (allreduce_irls, esm_irls_step, esm_residuals_and_normal_eq, esm_result,
+                           esm_stratified, ic_irls_step, irls_solve_step)
 from ..ops.warp import backproject_grid
 from . import consensus as cons
 from .frames import FrameLevel, KeyframeLevel
@@ -81,16 +96,21 @@ def plane_dtypes(t):
 
 
 def _apply_affine_illumination(
-    kf: Tuple[KeyframeLevel, ...], cur: Tuple[FrameLevel, ...], jac_dtype: str
+    kf: Tuple[KeyframeLevel, ...], cur: Tuple[FrameLevel, ...], jac_dtype: str, reduce=None
 ) -> Tuple[KeyframeLevel, ...]:
     """Estimate a global gain/bias (I_cur ~= a I_kf + b) by moment matching
     at level 0 and bake it into the template: intensity' = a I + b,
     intensity-gradient planes scaled by a. The stored keyframe is not
-    changed."""
+    changed. Under row sharding the template's sums are summed over the
+    ranks; the count is the current frame's, which is whole on every rank
+    and of the template's full size."""
     kl, cl = kf[0], cur[0]
-    n = float(kl.intensity.numel())
-    mean_k = kl.intensity.sum() / n
-    var_k = torch.clamp((kl.intensity * kl.intensity).sum() / n - mean_k * mean_k, min=1e-8)
+    n = float(cl.intensity.numel())
+    sum_k, sq_k = kl.intensity.sum(), (kl.intensity * kl.intensity).sum()
+    if reduce is not None:
+        sum_k, sq_k = reduce(torch.stack([sum_k, sq_k])).unbind()
+    mean_k = sum_k / n
+    var_k = torch.clamp(sq_k / n - mean_k * mean_k, min=1e-8)
     mean_c = cl.intensity.sum() / n
     var_c = torch.clamp((cl.intensity * cl.intensity).sum() / n - mean_c * mean_c, min=1e-8)
     # A near-textureless image carries no gain information: identity gain.
@@ -145,14 +165,15 @@ class TrackResult(NamedTuple):
     rescue_ran: bool = False
 
 
-def template_level(kl: KeyframeLevel, intr_l: Intrinsics, s: int):
+def template_level(kl: KeyframeLevel, intr_l: Intrinsics, s: int, row_offset: int = 0):
     """One level's template as the kernels read it: every s-th row and
     column of every plane, the ESM gradients or the IC field included
     (contiguous copies), and the backprojected points.
 
     Strided pixel (i, j) is pixel (s i, s j) of the level, so
     backprojection uses plain 1/s-scaled intrinsics while projection (in
-    the kernel) keeps ``intr_l``. Returns (strided level, (X, Y, Z))."""
+    the kernel) keeps ``intr_l``. ``row_offset``: the first row of a row
+    band, in strided rows. Returns (strided level, (X, Y, Z))."""
     intr_bp = intr_l
     if s > 1:
         kl = KeyframeLevel(
@@ -165,7 +186,7 @@ def template_level(kl: KeyframeLevel, intr_l: Intrinsics, s: int):
             fx=intr_l.fx / s, fy=intr_l.fy / s, cx=intr_l.cx / s, cy=intr_l.cy / s,
             width=kl.xi.shape[1], height=kl.xi.shape[0],
         )
-    return kl, backproject_grid(kl.xi, intr_bp)
+    return kl, backproject_grid(kl.xi, intr_bp, row_offset)
 
 
 _EDGES: dict = {}
@@ -192,9 +213,12 @@ def _read_host(t: torch.Tensor) -> np.ndarray:
 class _Pyramid:
     """One frame's templates and the IRLS loop over them."""
 
-    def __init__(self, kf, cur, intrs, cfg, jac_dtype, dev):
+    def __init__(self, kf, cur, intrs, cfg, jac_dtype, dev, reduce=None, row_offsets=None):
         self.cfg, self.cur, self.intrs = cfg, cur, intrs
         self.esm = cfg.jacobian == "esm"
+        if reduce is not None and not self.esm:
+            raise ValueError("row-sharded tracking runs the ESM tracker only")
+        self.reduce = reduce
         # One early exit for both knobs (0: every iteration runs).
         self.tol = cfg.early_exit_tol if cfg.early_exit_tol > 0 else cfg.conv_skip_tol
         self.s2i0 = torch.full((), cfg.init_sigma_int**2, dtype=torch.float32, device=dev)
@@ -202,10 +226,12 @@ class _Pyramid:
         self.zero = torch.zeros((), dtype=torch.float32, device=dev)
         self.eye6 = torch.eye(6, dtype=torch.float32, device=dev)
         if cfg.affine_illumination and self.esm:
-            kf = _apply_affine_illumination(kf, cur, jac_dtype)
+            kf = _apply_affine_illumination(kf, cur, jac_dtype, reduce)
         strides = tuple(cfg.template_stride or ())
         strides = strides + (1,) * max(0, cfg.levels - len(strides))
-        self.tmpl = [template_level(kf[l], intrs[l], strides[l]) for l in range(cfg.levels)]
+        offsets = row_offsets or (0,) * cfg.levels
+        self.tmpl = [template_level(kf[l], intrs[l], strides[l], offsets[l])
+                     for l in range(cfg.levels)]
         # The IRLS loop's template intensity; tmpl keeps the float32 one
         # (the vote and the rescue's evidence read it).
         self.int_loop = [kl.intensity for kl, _ in self.tmpl]
@@ -230,7 +256,15 @@ class _Pyramid:
         err = inl = nv = self.zero
         step = None
         for _ in range(self.n_iters(level)):
-            if self.esm:
+            if self.reduce is not None:
+                res = esm_result(
+                    T, kf_int, points, mask, kl.jac, cl.stack7, intr_l, cfg.student_t_nu, s2i,
+                    s2x, cfg.use_geometric, cfg.gate_sigmas, cfg.occlusion_gate, gate_cap,
+                    prev=step, tol=self.tol,
+                )
+                step = irls_solve_step(T, allreduce_irls(res, self.reduce), cfg.damping,
+                                       prev=step, tol=self.tol, slot=level)
+            elif self.esm:
                 step = esm_irls_step(
                     T, kf_int, points, mask, kl.jac, cl.stack7, intr_l,
                     cfg.student_t_nu, s2i, s2x, cfg.use_geometric, cfg.gate_sigmas,
@@ -252,8 +286,13 @@ class _Pyramid:
 
 def _tail(pyr: _Pyramid, T, H, s2i, s2x, errors, inliers, nvalids, mask0, **consensus):
     # Geometric overlap normalized for sensor dropout on both sides; the
-    # template count and n_valid share the template stride.
-    kf_count = torch.clamp(mask0.sum(), min=1.0)
+    # template count and n_valid share the template stride. Under row
+    # sharding the template count is summed over the ranks, the current
+    # frame's (whole on every rank) is not.
+    kf_count = mask0.sum()
+    if pyr.reduce is not None:
+        kf_count = pyr.reduce(kf_count.reshape(1))[0]
+    kf_count = torch.clamp(kf_count, min=1.0)
     cur_mask = pyr.cur[0].mask
     cur_frac = torch.clamp(cur_mask.sum() / float(cur_mask.numel()), 0.05, 1.0)
     overlap = torch.clamp(nvalids[-1] / (kf_count * cur_frac), 0.0, 1.0)
@@ -274,6 +313,8 @@ def track(
     jac_dtype: str = "f32",
     cons_prev=None,
     read=None,
+    reduce=None,
+    row_offsets=None,
 ) -> TrackResult:
     """The production coarse-to-fine tracker (``cfg`` is a TrackingConfig;
     ``check_tracking_supported`` lists the settings that raise; the frame's
@@ -285,8 +326,14 @@ def track(
     counts ((consensus_bins,) host array, what MotionState carries); None
     waives the consensus persistence gates (single-shot tracking), and the
     returned counts then start from a zero history. ``read`` copies a device
-    tensor to a host numpy array (default: ``t.cpu().numpy()``)."""
-    pyr = _Pyramid(kf, cur, intrs, cfg, jac_dtype, T_init.device)
+    tensor to a host numpy array (default: ``t.cpu().numpy()``).
+
+    Row sharding (ESM only; ValueError otherwise): ``reduce`` sums a tensor
+    over the ranks and returns the sum, the same bits on every rank;
+    ``kf`` is then this rank's row band of every level and
+    ``row_offsets[l]`` the band's first row at level l in template-stride
+    rows. See the module docstring."""
+    pyr = _Pyramid(kf, cur, intrs, cfg, jac_dtype, T_init.device, reduce, row_offsets)
     if cfg.consensus and pyr.esm:
         return _track_consensus(pyr, T_init, cons_prev, read or _read_host)
     T, s2i, s2x, H = T_init, pyr.s2i0, pyr.s2x0, pyr.eye6
@@ -362,6 +409,8 @@ def _track_consensus(pyr: _Pyramid, T_init, cons_prev, read) -> TrackResult:
                 pyr.s2i0, pyr.s2x0, kl.xi, edges, cfg.use_geometric, cfg.gate_sigmas,
                 occlusion_gate=True,
             )
+            if pyr.reduce is not None:
+                sums = pyr.reduce(sums)
             # Template aging: thresholds inflate with the motion since the
             # keyframe.
             t_norm = torch.linalg.vector_norm(T[:3, 3])
@@ -482,11 +531,12 @@ def _track_consensus(pyr: _Pyramid, T_init, cons_prev, read) -> TrackResult:
         cl0, intr0 = pyr.cur[0], pyr.intrs[0]
 
         def err0_fixed(Tq):
-            return esm_residuals_and_normal_eq(
-                Tq, kl0.intensity, pts0, evid_mask, kl0.jac, cl0.stack7, intr0,
-                cfg.student_t_nu, pyr.s2i0, pyr.s2x0, cfg.use_geometric, cfg.gate_sigmas,
-                cfg.occlusion_gate, gate_cap=cfg.occ_gate_cap,
-            ).error
+            args = (Tq, kl0.intensity, pts0, evid_mask, kl0.jac, cl0.stack7, intr0,
+                    cfg.student_t_nu, pyr.s2i0, pyr.s2x0, cfg.use_geometric, cfg.gate_sigmas,
+                    cfg.occlusion_gate, cfg.occ_gate_cap)
+            if pyr.reduce is not None:
+                return allreduce_irls(esm_result(*args), pyr.reduce)[44]
+            return esm_residuals_and_normal_eq(*args).error
 
         D_r = se3.inv(T) @ Tr
         ev = read(torch.stack([err0_fixed(Tr), err0_fixed(T),

@@ -186,8 +186,9 @@ def test_port_imports_no_jax_or_cv2():
     gauntlet, the seed sweep, the vocabulary builder, the utilities and the
     command line), renders a short sequence, writes it as a TUM directory
     with the port's PNG encoder, reads it back through the TUM reader (with
-    the fr1 undistortion) and the live source, and saves and restores a
-    snapshot, without loading jax or cv2,
+    the fr1 undistortion) and the live source, saves and restores a
+    snapshot, draws both plots, renders a live-viewer panel and imports the
+    multi-rank modules, without loading jax, cv2 or matplotlib,
     and without loading any module from a file of the JAX package
     (``rgbid_tpu/``); the port's config is the JAX package's (same hash)."""
     code = (
@@ -235,18 +236,26 @@ def test_port_imports_no_jax_or_cv2():
         "assert len(list(live.LiveSource(d, idle_timeout=0.05).frames())) == 2\n"
         "snapshot.save(slam, os.path.join(d, 's.npz'))\n"
         "assert snapshot.restore(os.path.join(d, 's.npz'), device='cpu')._frame_count == 2\n"
+        "from rgbid_tpu_torch.utils import viz, raster, live_view\n"
+        "import rgbid_tpu_torch.parallel, rgbid_tpu_torch.parallel.launch\n"
+        "viz.plot_trajectory([('est', poses)], os.path.join(d, 't.png'), keyframe_poses=poses)\n"
+        "viz.plot_map_topdown(slam.map_points(), os.path.join(d, 'm.png'))\n"
+        "lv = live_view.LiveViewer(os.path.join(d, 'live'))\n"
+        "lv.publish({'rgb': frames[0][0], 'depth': frames[0][1], 'poses': poses,\n"
+        "            'kf_poses': poses[:1], 'cloud': slam.map_points()})\n"
+        "lv.close(); assert lv.rendered == 1 and lv.errors == 0\n"
         "ref = pathlib.Path('rgbid_tpu').resolve()\n"
         "files = [getattr(m, '__file__', None) for m in list(sys.modules.values())]\n"
         "ours = [f for f in files if f and pathlib.Path(f).resolve().is_relative_to(ref)]\n"
         "print(port.SlamConfig().config_hash(), 'jax' in sys.modules, 'cv2' in sys.modules,\n"
-        "      len(ours), sum(f is not None for f in files))\n"
+        "      'matplotlib' in sys.modules, len(ours), sum(f is not None for f in files))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    h, has_jax, has_cv2, n_ref, n_files = out.stdout.split()
-    assert (has_jax, has_cv2) == ("False", "False")
+    h, has_jax, has_cv2, has_mpl, n_ref, n_files = out.stdout.split()
+    assert (has_jax, has_cv2, has_mpl) == ("False", "False", "False")
     assert n_ref == "0" and int(n_files) > 50, out.stdout
     assert h == JSlamConfig().config_hash()
 
@@ -283,28 +292,6 @@ def test_chip_smoke_scene_on_cpu():
     assert not any(s.get("lost") for s in slam.stats)
     assert 2.0 * ate <= chip_smoke.ATE_BOUND_M, ate
     assert len(slam.map_points()) > 0
-
-
-@pytest.mark.parametrize(
-    "override",
-    [
-        {"viz.enabled": True},
-    ],
-    ids=lambda o: next(iter(o)),
-)
-def test_unported_settings_raise(override):
-    """Each message names a ROADMAP item, and that item exists: ROADMAP.md
-    has a numbered entry of Queue 1 under that number which is not marked
-    done."""
-    cfg = port.SlamConfig().override(**{**SLICE, **override})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 #\d+") as err:
-        port.SlamSystem(port.Intrinsics(*QVGA), cfg, device="cpu")
-    item = re.search(r"ROADMAP Queue 1 #(\d+)", str(err.value)).group(1)
-    roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
-    queue1 = roadmap.split("### Queue 1")[1].split("### Queue 2")[0]
-    entry = re.search(rf"^{item}\. \*\*(.*)$", queue1, re.M)
-    assert entry is not None, f"ROADMAP Queue 1 has no item #{item}"
-    assert "(done" not in entry.group(1).lower(), entry.group(1)
 
 
 @pytest.mark.parametrize(
