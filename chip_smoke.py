@@ -36,20 +36,38 @@ otherwise. Phases, each printing its own lines:
    end of an iteration) against ``ic_update`` on a tracked, a few-valid and
    a non-positive-definite result, the split step (result-only launch,
    ``allreduce_irls`` over one rank, the solve) bit-equal to the fused
-   ``esm_irls_step`` at every level's layout, and its early exit;
+   ``esm_irls_step`` at every level's layout, and its early exit; then the
+   consensus vote kernel (``csrc/consensus_vote.cu``) against its plain
+   version on the CPU on the consensus test's six synthetic cases and
+   seeded random sums and on the stratified kernel's VGA L2 / L1 sums (K 1,
+   6, 16), from a fresh state and one with a stratum out: member vectors,
+   state, rerun word and decision words equal, deltas within 1e-6 of the
+   largest; and the predicate word ``go`` of the ESM step at every level
+   and of fusion at 480x640 and 641x481: held (0) the output is ``hold`` /
+   the input planes bit for bit, 1 the launch without the word;
 4. main paths: SlamSystem over synthetic VGA sequences with known ground
    truth, five times, and a sixth over a closed loop (item 6): the ESM configuration with the consensus off, the
    default configuration (``SlamConfig()``, back end off: ESM with the
    motion consensus) on the rigid sequence and on a mover sequence (a
    near panel crossing at walking speed), then the inverse-compositional
    (IC) configuration with lagged and then exact Student-t scales. Each
-   run checks launch counts (one per IRLS iteration, plus the consensus's
-   reruns and rescues as the tracker counted them; two stratified launches
-   per tracked frame under the consensus; one fusion launch per fused
-   frame; the scale phases inside the IC exact launches), keyframe
-   switches, lost frames, finite poses, its ATE bound, that the consensus
-   fired on the mover, host reads against the syncs PyTorch reports, and
-   run-to-run bit-identity, and prints ms/frame;
+   run checks the launch counts of the captured step, one replay per
+   tracked frame (one IRLS launch per iteration, and under the consensus
+   the masked reruns' and the rescue pyramid's, always enqueued, two
+   stratified and two vote launches; one fusion launch; the scale phases
+   inside the IC exact launches), the IRLS launches that ran on the device
+   (40 per tracked frame plus the rerun iterations plus 42 per rescue, as
+   the result vectors report them), keyframe switches, lost frames, finite
+   poses, its ATE bound, that the consensus fired on the mover, host reads
+   (one per tracked frame plus the finalizes) against the syncs PyTorch
+   reports, and run-to-run bit-identity, and prints ms/frame. Then
+   [flight]: the default configuration on the rigid, mover and loop
+   sequences and IC lagged, each as ``feed(flight_depth=32)`` and as a
+   ``process_frame`` loop (poses and records bit-equal, one read per
+   flight, one replay per tracked frame, every dispatch silent under
+   set_sync_debug_mode("error")), ms/frame of both and kernels per tracked
+   frame, and a relocalization inside a flight on the reloc sequence with
+   the back end on;
 5. times: each kernel and its plain version, with CUDA events and with
    torch.profiler (the kernel's device time both ways: the profiler's
    kernel durations, and CUDA events around calls run back to back behind
@@ -656,6 +674,9 @@ ODD_INTR = Intrinsics(fx=517.3, fy=516.5, cx=319.6, cy=239.8, width=641, height=
 # operations over the f32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# float64 outside the tensor cores, the same data sheet (the vote kernel's
+# eigensolve).
+F64_FLOPS = 34e12
 # Operations per template (or, for fusion, level-0) pixel, counted from the
 # kernels' sources: projection 25, corners 10, gather and mask 7 per plane
 # + 3, residuals and weights ~26, Jacobians ~89 (ESM), the 32 sums ~180.
@@ -1020,18 +1041,116 @@ def _stratified_compare(a, lvl: int, tc, intr_l):
 
 
 def _verdicts(sums, level: int, tc, intr_l):
-    """analyze + decide on one vote's (K, 50) host sums, under a cold and a
-    ripe history: the flags the tracker would act on."""
-    Hk, bk, nk, Gk, ek = gauss_newton.unpack_stratified(sums)
+    """analyze + decide (the plain version, on the CPU) on one vote's
+    (K, 50) host sums, under a cold and a ripe history: the flags the
+    tracker would act on."""
+    Hk, bk, nk, Gk, ek = gauss_newton.unpack_stratified(torch.from_numpy(sums))
     tol = tc.consensus_tol * (intr_l.fx * 2.0**level / tc.consensus_ref_fx)
     v = consensus.analyze(Hk, bk, nk, Gk, ek, tol, tc.consensus_min_frac,
                           tc.consensus_err_ratio, tc.consensus_err_floor)
-    out = [v.excluded, v.hostage, v.dominant, np.float32(v.majority_ok)]
-    for hist in (np.zeros_like(nk), np.full_like(nk, 5.0)):
+    out = [v.excluded, v.hostage, v.dominant, v.majority_ok.float()]
+    for hist in (torch.zeros_like(nk), torch.full_like(nk, 5.0)):
         d = consensus.decide(v, hist, nk, tc.consensus_trigger_frac, tc.consensus_max_frac,
                              tc.consensus_persist)
-        out += [d.member, np.float32(d.triggered), np.float32(d.rescue)]
-    return np.concatenate([np.atleast_1d(x) for x in out])
+        out += [d.member, d.triggered.float(), d.rescue.float()]
+    return torch.cat([x.reshape(-1) for x in out]).numpy()
+
+
+# The consensus's synthetic cases (tests/test_consensus.py's six) and seeded
+# random sums, (Hk, bk, nk, Gk, ek, prev_counts) float32 each, K strata:
+# tests/test_torch_consensus.py holds analyze / decide to the JAX package on
+# them, and [kernels] holds the vote kernel to its plain version.
+CONSENSUS_K = 6
+
+
+def _eye_stack(scales, nk):
+    return np.stack([s * np.eye(6) for s in scales]).astype(np.float32) * nk[:, None, None]
+
+
+def consensus_fixture(name):
+    """(Hk, bk, nk, Gk, ek, prev_counts) of tests/test_consensus.py's six
+    synthetic cases, float32."""
+    f32, K = np.float32, CONSENSUS_K
+    if name == "majority":
+        nk = np.array([2000.0, 1500.0, 1800.0, 1700.0, 2500.0, 50.0], f32)
+        d = np.zeros((K, 6), f32)
+        d[0, 0], d[1, 1], d[2, 0], d[2, 2], d[3, 0], d[3, 1] = 2e-4, 3e-4, -2e-4, 1e-4, 1e-4, -1e-4
+        d[4, 0], d[4, 1] = 0.02, 0.01
+        Hk = _eye_stack([1e4, 1e4, 1e4, 1e4, 1e6, 1e2], nk)
+        bk = np.einsum("kij,kj->ki", Hk, d).astype(f32)
+        return Hk, bk, nk, _eye_stack([1e4] * K, nk), (0.1 * nk).astype(f32), np.full(K, 10.0, f32)
+    if name == "static":
+        rng = np.random.default_rng(0)
+        nk = rng.uniform(500, 3000, K).astype(f32)
+        d = rng.normal(0, 3e-4, (K, 6)).astype(f32)
+        Hk = _eye_stack([1e4] * K, nk)
+        bk = (np.einsum("kij,kj->ki", Hk / nk[:, None, None], d) * nk[:, None]).astype(f32)
+        return Hk, bk, nk, _eye_stack([1e4] * K, nk), (0.1 * nk).astype(f32), np.full(K, 10.0, f32)
+    if name == "error_outlier":
+        nk = np.array([2000.0, 1800.0, 2200.0, 900.0, 0.0, 0.0], f32)
+        n1 = np.maximum(nk, 1)
+        ek = (np.array([0.1, 0.15, 0.12, 4.8, 0.0, 0.0], f32) * n1).astype(f32)
+        return (_eye_stack([1e4] * K, n1), np.zeros((K, 6), f32), nk, _eye_stack([1e4] * K, n1),
+                ek, np.full(K, 10.0, f32))
+    if name == "hostage":
+        nk = np.array([0.0, 4900.0, 3300.0, 1800.0, 0.0, 0.0], f32)
+        ek = (np.array([0.0, 0.07, 0.9, 0.15, 0.0, 0.0], f32) * nk).astype(f32)
+        return (_eye_stack([0.0, 2e3, 8e3, 2e5, 0.0, 0.0], nk), np.zeros((K, 6), f32), nk,
+                _eye_stack([1e4] * K, nk), ek, np.array([0, 0, 0, 5.0, 0, 0], f32))
+    if name == "two_voter":
+        nk = np.array([0.0, 4700.0, 5300.0, 0.0, 0.0, 0.0], f32)
+        d = np.zeros((K, 6), f32)
+        d[1, 0], d[2, 0] = 0.02, -0.02
+        Hk = _eye_stack([1e4] * K, nk)
+        bk = (np.einsum("kij,kj->ki", Hk, d) / np.maximum(nk, 1.0)[:, None] * nk[:, None])
+        return (Hk, bk.astype(f32), nk, _eye_stack([1e4] * K, nk), (0.1 * nk).astype(f32),
+                np.full(K, 10.0, f32))
+    if name == "dominance":
+        nk = np.array([0.0, 4700.0, 3200.0, 2100.0, 0.0, 0.0], f32)
+        return (_eye_stack([0.0, 4e3, 1e4, 3e4, 0.0, 0.0], nk), np.zeros((K, 6), f32), nk,
+                _eye_stack([1e4] * K, nk), (0.1 * nk).astype(f32), np.full(K, 10.0, f32))
+    raise KeyError(name)
+
+
+def consensus_random_sums(seed, even_voters=False, all_agree=False):
+    """Seeded random per-stratum sums: SPD H and G with a wide but bounded
+    eigenvalue spread, corrections of mixed size, errors around the
+    outlier floor. ``even_voters``: four voting strata (an even count, the
+    median's two-middle-values case); ``all_agree``: every stratum is
+    converged (b = 0), so every hypothesis has the same support and the
+    first index must win the argmax."""
+    rng = np.random.default_rng(seed)
+    f32, K = np.float32, CONSENSUS_K
+    nk = rng.uniform(800, 4000, K).astype(f32)
+    if even_voters:
+        nk[[1, 4]] = rng.uniform(5, 20, 2).astype(f32)
+    Hk, Gk = [], []
+    for _ in range(K):
+        Q, _ = np.linalg.qr(rng.standard_normal((6, 6)))
+        ev = np.exp(rng.uniform(np.log(1e2), np.log(1e5), 6))
+        Hk.append(Q @ np.diag(ev) @ Q.T)
+        Q2, _ = np.linalg.qr(rng.standard_normal((6, 6)))
+        Gk.append(Q2 @ np.diag(np.exp(rng.uniform(np.log(1e3), np.log(3e4), 6))) @ Q2.T)
+    Hk = (np.stack(Hk) * nk[:, None, None]).astype(f32)
+    Gk = (np.stack(Gk) * nk[:, None, None]).astype(f32)
+    d = rng.normal(0, 2e-3, (K, 6))
+    if all_agree:
+        d[:] = 0.0
+    else:
+        d[rng.integers(K)] += rng.normal(0, 3e-2, 6)
+    bk = np.einsum("kij,kj->ki", Hk, d).astype(f32)
+    ek = (rng.uniform(0.05, 0.3, K) * nk).astype(f32)
+    if not all_agree:
+        ek[rng.integers(K)] = f32(rng.uniform(1.0, 5.0)) * nk[0]
+    prev = rng.integers(0, 6, K).astype(f32)
+    return Hk, bk, nk, Gk, ek, prev
+
+
+CONSENSUS_CASES = ["majority", "static", "error_outlier", "hostage", "two_voter", "dominance"]
+CONSENSUS_RANDOM = [(s, False, False) for s in range(8)] + [(100, True, False), (101, True, False),
+                                                  (200, False, True)]
+
+
 
 
 def scrambled_xi(shape, edges: np.ndarray, empty: int, seed: int, odd_values: bool) -> np.ndarray:
@@ -1080,7 +1199,7 @@ def phase_stratified():
     s2i = torch.full((), tc.init_sigma_int**2, device="cuda")
     s2x = torch.full((), tc.init_sigma_xi**2, device="cuda")
     ok, e_abs, e_scaled = True, 0.0, 0.0
-    timing = []
+    timing, vote_sums = [], []
     for cam, intr in (("VGA", TUM_FR1), ("odd", ODD_INTR)):
         frames, gt = make_mover_sequence(intr, n=4)
         step = ProcessFrame(intr, cfg, "cuda")
@@ -1103,6 +1222,8 @@ def phase_stratified():
                 good &= empty
                 text += f", stratum {EMPTY_STRATUM} empty {empty}"
             ok &= good
+            if cam == "VGA" and lvl in (1, 2):
+                vote_sums.append((lvl, K, strata_from, kh, step.intrs[lvl]))
             print(f"[kernels] esm_stratified {cam} L{lvl} K {K} {strata_from}: template "
                   f"{tuple(kl.mask.shape)} stack {tuple(cur[lvl].stack7.shape)} {text} "
                   f"{'OK' if good else 'FAIL'}")
@@ -1116,8 +1237,9 @@ def phase_stratified():
                   source="rgbid_tpu_torch/csrc/esm_stratified.cu",
                   replaces="rgbid_tpu/ops/gauss_newton.py:434 (XLA, no Pallas kernel)",
                   max_abs_err=e_abs, max_err_of_tol=e_scaled)
-    # Timed coarse to fine like the main path: L2, then L1.
-    return ok, {"esm_stratified": record}, timing
+    # Timed coarse to fine like the main path: L2, then L1. The VGA vote
+    # layouts' kernel sums go to the vote kernel's check.
+    return ok, {"esm_stratified": record}, timing, vote_sums
 
 
 def phase_ic_kernels():
@@ -1490,6 +1612,12 @@ def phase_early_exit():
     return ok, timing
 
 
+def _plain_update(T, res, damping: float):
+    """The plain end of an IRLS iteration: ``ic_update`` on an evaluation,
+    as the step its launch would write."""
+    return kernels._irls_step(kernels._plain_out(T, res, damping))
+
+
 def _solve_case(label: str, T, result: torch.Tensor, damping: float, moves: bool):
     """``irls_solve_step`` against its plain version (``ic_update`` on the
     same 48 floats): the result copied bit for bit, T' and delta within
@@ -1497,7 +1625,7 @@ def _solve_case(label: str, T, result: torch.Tensor, damping: float, moves: bool
     False), and a rerun bit-identical."""
     k = kernels.irls_solve_step(T, result, damping)
     k2 = kernels.irls_solve_step(T, result, damping)
-    p = kernels._plain_step(T, kernels.unpack_result(result), damping)
+    p = _plain_update(T, kernels.unpack_result(result), damping)
     torch.cuda.synchronize()
     copied = bool(torch.equal(kernels.pack_result(k.result), result))
     dT, dd = _step_errs(k, p.T, p.delta)
@@ -1565,10 +1693,371 @@ def phase_solve(records):
     )
     timing = [("irls_solve", "48 floats", lambda a: kernels.irls_solve_step(a[0], a[1],
                                                                             damping).out,
-               lambda a: kernels._plain_step(a[0], kernels.unpack_result(a[1]), damping),
+               lambda a: _plain_update(a[0], kernels.unpack_result(a[1]), damping),
                (T, tracked), float(SOLVE_FLOPS), "result (48), T (16) -> out (70)", (T, tracked))]
     print(f"[kernels] irls_solve: {'OK' if ok else 'FAIL'}")
     return ok, timing
+
+
+def pack_sums(Hk, bk, nk, Gk, ek) -> np.ndarray:
+    """(K, 50) stratified sums (gauss_newton.STRATIFIED_SUMS columns: 21 H,
+    6 b, n, the error, 21 G; upper triangles row by row) from per-stratum
+    H, b, n, G and error, as ``unpack_stratified`` splits them."""
+    up = [(a, c) for a in range(6) for c in range(a, 6)]
+    K = len(nk)
+    out = np.zeros((K, gauss_newton.STRATIFIED_SUMS), np.float32)
+    for j, (a, c) in enumerate(up):
+        out[:, j] = Hk[:, a, c]
+        out[:, 29 + j] = Gk[:, a, c]
+    out[:, 21:27], out[:, 27], out[:, 28] = bk, nk, ek
+    return out
+
+
+def _vote_params(tc, tol: float):
+    return consensus.VoteParams.of(tc, tol)
+
+
+def _vote_case(label: str, sums: np.ndarray, hist: np.ndarray, tol: float, bscale: float, tc):
+    """One vote on the card against its plain version on the CPU, from the
+    initial state and from a state with the last stratum already out.
+    Member vectors, the whole new state, the rerun word and the decision
+    words must be equal; the deltas (float64 Jacobi, then float32) within
+    1e-6 of the largest (the float orders are the same, so they are
+    expected equal bit for bit). Returns (good, max |d| of the deltas)."""
+    K = sums.shape[0]
+    p = _vote_params(tc, tol)
+    good, e_abs = True, 0.0
+    member0 = np.ones((K,), np.float32)
+    member1 = member0.copy()
+    member1[-1] = 0.0
+    for mname, member in (("fresh", member0), ("one out", member1)):
+        state = consensus.VoteState.initial(torch.from_numpy(member))
+        cpu = (torch.from_numpy(sums), torch.tensor(bscale, dtype=torch.float32),
+               torch.from_numpy(hist), state)
+        dev = tuple(t.cuda() for t in cpu)
+        k = consensus.consensus_vote(*dev, p)
+        k2 = consensus.consensus_vote(*dev, p)
+        pl = consensus.vote_plain(*cpu, p)
+        torch.cuda.synchronize()
+        ks, kg, kd = (t.cpu() for t in k)
+        ps, pg, pd = pl
+        dk, dp = consensus.VoteDiag.split(kd, K), consensus.VoteDiag.split(pd, K)
+        scale = float(dp.deltas.abs().max().clamp(min=1e-30))
+        ed = float((dk.deltas - dp.deltas).abs().max())
+        words = all(torch.equal(getattr(dk, f), getattr(dp, f)) for f in
+                    ("excluded", "hostage", "dominant", "member", "majority_ok", "triggered",
+                     "rescue", "excluded_frac"))
+        same = (torch.equal(ks, ps) and int(kg) == int(pg) and words and ed <= 1e-6 * scale
+                and all(torch.equal(a, b) for a, b in zip(k, k2)))
+        e_abs = max(e_abs, ed)
+        good &= same
+        if not same:
+            print(f"[kernels] consensus_vote {label} ({mname}): state equal "
+                  f"{torch.equal(ks, ps)}, go {int(kg)} / {int(pg)}, words equal {words}, deltas "
+                  f"max|d| {ed:.3e} of {scale:.3e} FAIL")
+    return good, e_abs
+
+
+def phase_consensus_vote(vote_sums):
+    """The vote kernel (csrc/consensus_vote.cu) against its plain version
+    (``consensus.vote_plain`` on the CPU): the six synthetic cases and the
+    seeded random sums of tests/test_torch_consensus.py (each at baseline
+    scale 1.0 and 1.7, under its own history), and the VGA vote layouts of
+    [kernels] esm_stratified at L2 and L1 with K 1, 6 and 16 (under a cold
+    and a ripe history), each from a fresh state and one with a stratum
+    out. Returns (ok, record, timing)."""
+    tc = default_config().tracking
+    ok, e_abs, n = True, 0.0, 0
+    for name in CONSENSUS_CASES:
+        Hk, bk, nk, Gk, ek, prev = consensus_fixture(name)
+        for bscale in (1.0, 1.7):
+            good, e = _vote_case(f"{name} bscale {bscale}", pack_sums(Hk, bk, nk, Gk, ek), prev,
+                                 0.4, bscale, tc)
+            ok, e_abs, n = ok and good, max(e_abs, e), n + 1
+    for seed, even, agree in CONSENSUS_RANDOM:
+        Hk, bk, nk, Gk, ek, prev = consensus_random_sums(seed, even, agree)
+        for bscale in (1.0, 1.7):
+            good, e = _vote_case(f"random {seed} bscale {bscale}", pack_sums(Hk, bk, nk, Gk, ek),
+                                 prev, 0.4, bscale, tc)
+            ok, e_abs, n = ok and good, max(e_abs, e), n + 1
+    layouts = []
+    for lvl, K, strata_from, kh, intr_l in vote_sums:
+        tol = tc.consensus_tol * (intr_l.fx * 2.0**lvl / tc.consensus_ref_fx)
+        for hname, hist in (("cold", np.zeros((K,), np.float32)),
+                            ("ripe", np.full((K,), 5.0, np.float32))):
+            good, e = _vote_case(f"VGA L{lvl} K {K} {strata_from} {hname}", kh, hist, tol, 1.0,
+                                 tc)
+            ok, e_abs, n = ok and good, max(e_abs, e), n + 1
+        layouts.append(f"L{lvl} K{K} {strata_from}")
+    print(f"[kernels] consensus_vote: {n} cases x 2 states ({len(CONSENSUS_CASES)} synthetic "
+          f"and {len(CONSENSUS_RANDOM)} random at baseline scale 1.0 and 1.7; VGA {layouts} "
+          f"cold and ripe): member vectors, state, rerun word and decision words equal, deltas "
+          f"max|d| {e_abs:.3e} (tol 1e-6 of the largest), rerun bit-identical "
+          f"{'OK' if ok else 'FAIL'}")
+    # Timed at the vote's own layout: VGA L2, K 6, the default config.
+    lvl, K, _, kh, intr_l = next(v for v in vote_sums if v[1] == 6 and v[2] == "depth")
+    tol = tc.consensus_tol * (intr_l.fx * 2.0**lvl / tc.consensus_ref_fx)
+    args = (torch.from_numpy(kh).cuda(), torch.tensor(1.0, device="cuda"),
+            torch.zeros((K,), device="cuda"),
+            consensus.VoteState.initial(torch.ones((K,), device="cuda")), _vote_params(tc, tol))
+    # Operations: per stratum 50 Jacobi rounds of three rotations (~12
+    # operations each) applied to two matrices' columns and one's rows (36
+    # entries x 3 operations x 3), float64, counted at the float64 rate as
+    # float32-rate equivalents; the flow metric 84 K^2 and the rest ~100 K,
+    # float32.
+    f64 = K * (50 * (36 + 324) + 150)
+    flops = f64 * F32_FLOPS / F64_FLOPS + 84 * K * K + 100 * K
+    timing = [("consensus_vote", f"L{lvl}", lambda a: consensus.consensus_vote(*a),
+               lambda a: consensus.vote_plain(*a), args, flops,
+               f"VGA L{lvl} vote, K {K}", args[:4])]
+    record = dict(name="consensus_vote", route="cuda",
+                  source="rgbid_tpu_torch/csrc/consensus_vote.cu",
+                  replaces="rgbid_tpu/tracking/consensus.py:134-424 (XLA, no Pallas kernel)",
+                  max_abs_err=e_abs)
+    return ok, record, timing
+
+
+def phase_go(records):
+    """The predicate word of the ESM step and of fusion: with go = 0 the
+    output is ``hold`` (ESM: the step it copies) or the input planes
+    (fusion, n_fused 0) bit for bit, the workspace's counter words 0 after
+    it and nothing counted as run; with go = 1 the output equals the launch
+    without the word bit for bit. At every level of the default
+    configuration's layout (ESM) and at 480x640 and 641x481 (fusion). The
+    held launches are timed beside the running ones. Returns (ok, timing)."""
+    cfg = default_config()
+    tc, fcfg = cfg.tracking, cfg.fusion
+    strides = tuple(tc.template_stride) + (1,) * tc.levels
+    ok, timing = True, []
+    go0 = torch.zeros((), dtype=torch.int32, device="cuda")
+    go1 = torch.ones((), dtype=torch.int32, device="cuda")
+    kf, cur, T, intrs = _frame_pair(TUM_FR1, cfg)
+    ws = kernels.workspace(torch.device("cuda"))
+    for lvl in range(tc.levels - 1, -1, -1):
+        kl, pts = template_level(kf.levels[lvl], intrs[lvl], strides[lvl])
+        gate_cap = tc.occ_gate_cap if lvl <= tc.occ_gate_cap_level else 0.0
+        args = (T, kl.intensity, pts, kl.mask, kl.jac, cur[lvl].stack7, intrs[lvl],
+                tc.student_t_nu, torch.full((), 0.01, device="cuda"),
+                torch.full((), 0.0025, device="cuda"), tc.use_geometric, tc.gate_sigmas,
+                tc.occlusion_gate, gate_cap)
+        hold = kernels.esm_irls_step(*args, damping=tc.damping)
+        plain = kernels.esm_irls_step(*args, damping=tc.damping)
+        kernels.reset_iteration_counts("cuda")
+        held = kernels.esm_irls_step(*args, damping=tc.damping, go=go0, hold=hold, slot=0)
+        ran = kernels.esm_irls_step(*args, damping=tc.damping, go=go1, hold=hold, slot=1)
+        ev = kernels.esm_residuals_and_normal_eq(*args, go=go0, hold=hold,
+                                                 slot=kernels.EVAL_SLOT)
+        torch.cuda.synchronize()
+        launched, run = kernels.iteration_counts("cuda")
+        good = (torch.equal(held.out, hold.out) and torch.equal(ran.out, plain.out)
+                and all(torch.equal(a, b) for a, b in zip(ev, hold.result))
+                and ws.counter[:2].tolist() == [0, 0]
+                and run[:2].tolist() == [0, 1] and int(run[kernels.EVAL_SLOT]) == 0
+                and launched[:2].tolist() == [1, 1])
+        ok &= good
+        print(f"[kernels] go word, ESM L{lvl} template {tuple(kl.mask.shape)}: go 0 copies hold "
+              f"{torch.equal(held.out, hold.out)} (the evaluation too), go 1 equals the launch "
+              f"without the word {torch.equal(ran.out, plain.out)}, arrival counter words "
+              f"{ws.counter[:2].tolist()} (expected [0, 0]), run counts "
+              f"{run[:2].tolist()} of launched {launched[:2].tolist()} "
+              f"{'OK' if good else 'FAIL'}")
+        if lvl == 0:
+            timing.append(("esm", "held L0", lambda a: kernels.esm_irls_step(
+                *a, damping=tc.damping, go=go0, hold=hold), lambda a: hold, args, 0,
+                f"template {tuple(kl.mask.shape)}, go = 0", (hold.out, go0)))
+    vga, odd = _frame_pair(TUM_FR1, cfg), _frame_pair(ODD_INTR, cfg)
+    cov = torch.diag(torch.tensor([1e-6] * 3 + [1e-7] * 3, device="cuda"))
+    for size, (kf2, cur2, T2, intrs2) in (("480x640", vga), ("641x481", odd)):
+        fargs = (kf2.levels, kf2.var, kf2.mask_full, kf2.hits, cur2[0].xi, cur2[0].mask, T2, cov,
+                 intrs2[0], fcfg)
+        base = fusion.fuse_frame(*fargs)
+        held = fusion.fuse_frame(*fargs, go=go0)
+        ran = fusion.fuse_frame(*fargs, go=go1)
+        torch.cuda.synchronize()
+        copied = all(torch.equal(a, b) for a, b in zip(held[:4], (kf2.levels[0].xi, kf2.var,
+                                                                 kf2.mask_full, kf2.hits)))
+        same = all(torch.equal(a, b) for a, b in zip(ran, base))
+        good = copied and float(held[4]) == 0.0 and same and float(base[4]) > 0
+        ok &= good
+        print(f"[kernels] go word, fusion {size}: go 0 copies the planes through {copied}, "
+              f"n_fused {float(held[4]):.0f}; go 1 equals the launch without the word {same} "
+              f"(n_fused {float(base[4]):.0f}) {'OK' if good else 'FAIL'}")
+        if size == "480x640":
+            planes = (kf2.levels[0].xi, kf2.var, kf2.mask_full, kf2.hits)
+            timing.append(("fusion", "held 480x640", lambda a: fusion.fuse_frame(*a, go=go0),
+                           lambda a: tuple(p.clone() for p in a[1:4]), fargs,
+                           0, "480x640, go = 0: the four planes copied through", planes + (go0,)))
+    return ok, timing
+
+
+FLIGHT_DEPTH = 32
+
+
+def _guard_dispatch(slam):
+    """Every dispatch of ``slam`` under torch.cuda.set_sync_debug_mode
+    ("error"): a synchronizing operation inside one raises."""
+    orig = slam._dispatch
+
+    def guarded(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    slam._dispatch = guarded
+
+
+def _flight_run(slam, frames, depth: int, defer_updates: bool = False):
+    """One counted run: reset, every count set to 0, then the frames
+    through ``feed(flight_depth=depth)`` (or, depth 0, a ``process_frame``
+    loop), then ``finish()``. With ``defer_updates`` the back end's pose
+    updates are applied at ``finish()`` only, in both kinds of run (their
+    timing is the thread's)."""
+    slam.reset()
+    torch.cuda.synchronize()
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
+    kernels.reset_iteration_counts("cuda")
+    reads0, counts0 = slam._step.host_reads, slam.tracker_counts
+    replays0 = slam._step.replays
+    apply = slam._apply_pose_updates
+    if defer_updates:
+        slam._apply_pose_updates = lambda: None
+    t0 = time.perf_counter()
+    if depth:
+        slam.feed(frames, flight_depth=depth)
+    else:
+        for f in frames:
+            slam.process_frame(*f)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    slam._apply_pose_updates = apply
+    slam.finish()
+    torch.cuda.synchronize()
+    out = {name: getattr(wrapper, attr) for name, (wrapper, attr) in COUNTERS.items()}
+    counts = {k: v - counts0[k] for k, v in slam.tracker_counts.items()}
+    out.update(step_reads=slam._step.host_reads - reads0, replays=slam._step.replays - replays0,
+               finalize_reads=slam.manager.host_reads, ran=int(kernels.iteration_counts("cuda")[1].sum()),
+               records=_frame_records(slam.stats), poses=slam.poses(), wall_ms=wall_ms,
+               ms=[r["ms"] for r in slam.stats[1:]], **counts)
+    return out
+
+
+def _kernels_per_frame(slam, frames, depth: int) -> float:
+    """torch.profiler over one flight: device kernels (no copies or fills)
+    per tracked frame."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    slam.reset()
+    slam.process_frame(*frames[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        slam.feed(frames[1:depth + 1], flight_depth=depth)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset")))
+    return n / len(frames[1:depth + 1])
+
+
+def phase_flight(smi: str):
+    """[flight]: the default configuration on the rigid, mover and loop
+    sequences and IC lagged on the rigid one, each as
+    ``feed(flight_depth=32)`` and as a ``process_frame`` loop on one system
+    (its graph captured once, in the warm-up): poses and per-frame records
+    bit-equal; host reads one per flight plus the finalizes; one graph
+    replay per tracked frame; every dispatch silent under
+    set_sync_debug_mode("error"); the launches those of the captured graph
+    and the IRLS launches run on the device 40 + rerun iterations + 42 x
+    rescues per tracked frame. Then the reloc sequence with the back end
+    on, feed against the loop, its relocalization inside the second
+    flight. Prints ms/frame of both and kernels per tracked frame. Returns
+    (ok, counts summed over the counted runs)."""
+    runs = [("default rigid", default_config(), "rigid"), ("default mover", default_config(), "mover"),
+            ("default loop", loop_config(), "loop"), ("ic lagged", ic_config("lagged"), "rigid")]
+    ok, total = True, dict.fromkeys(COUNTERS, 0)
+    seqs = {}
+    for label, cfg, kind in runs:
+        if kind not in seqs:
+            seqs[kind] = SEQUENCES[kind]()
+        frames, _ = seqs[kind]
+        tc = cfg.tracking
+        slam = port.SlamSystem(TUM_FR1, cfg, device="cuda")
+        _run_sequence(slam, frames[:4])  # warm-up: builds and the capture
+        _guard_dispatch(slam)
+        loop = _flight_run(slam, frames, 0)
+        flight = _flight_run(slam, frames, FLIGHT_DEPTH)
+        n_kf = len(slam.manager.keyframes)
+        kpf = _kernels_per_frame(slam, frames, 16)
+        tracked = len(frames) - 1
+        flights = -(-tracked // FLIGHT_DEPTH)
+        expected = expected_launches(tc, tracked)
+        checks = {
+            "poses bit-equal": all(np.array_equal(a, b) for a, b in zip(loop["poses"], flight["poses"])),
+            "records bit-equal": loop["records"] == flight["records"],
+            "reads": loop["step_reads"] == tracked and flight["step_reads"] == flights
+            and flight["finalize_reads"] == loop["finalize_reads"] == n_kf,
+            "one replay per tracked frame": loop["replays"] == flight["replays"] == tracked
+            and slam._step.captures == 1,
+            "launches": all(r[k] == v for r in (loop, flight) for k, v in expected.items()),
+            "device runs": all(r["ran"] == expected_runs(tc, tracked, r["rerun_iters"], r["rescues"])
+                               for r in (loop, flight)),
+        }
+        good = all(checks.values())
+        ok &= good
+        for k in COUNTERS:
+            total[k] += loop[k] + flight[k]
+        print(f"[flight] {label}, {kind} sequence, {tracked} tracked frames: process_frame loop "
+              f"{np.median(loop['ms'][5:]):.3f} ms/frame (median), feed(flight_depth="
+              f"{FLIGHT_DEPTH}) {flight['wall_ms'] / tracked:.3f} ms/frame (mean, {flights} "
+              f"flights) on {smi}; host reads of the step {loop['step_reads']} / "
+              f"{flight['step_reads']}, finalizes {flight['finalize_reads']}; replays "
+              f"{loop['replays']} / {flight['replays']}, captures {slam._step.captures}, graph "
+              f"nodes {slam._step.graph_nodes}; kernels per tracked frame (torch.profiler, one "
+              f"flight of 16) {kpf:.1f}; IRLS launches run {flight['ran']} of "
+              f"{flight['esm_normal_eq'] + flight['ic_normal_eq']} (reruns "
+              f"{flight['rerun_iters']} iterations, rescues {flight['rescues']}); "
+              f"checks {checks} {'OK' if good else 'FAIL'}")
+    # A relocalization inside a flight: the reloc sequence, back end on.
+    frames, gt, i_reloc = make_reloc_sequence()
+    slam = port.SlamSystem(TUM_FR1, port.SlamConfig(), device="cuda")
+    _run_sequence(slam, frames[:4])
+    _guard_dispatch(slam)
+    dispatches = [0]
+    orig = slam._dispatch
+
+    def counted(*a, **k):
+        dispatches[0] += 1
+        return orig(*a, **k)
+
+    slam._dispatch = counted
+    loop = _flight_run(slam, frames, 0, defer_updates=True)
+    d_loop = dispatches[0]
+    flight = _flight_run(slam, frames, FLIGHT_DEPTH, defer_updates=True)
+    d_flight = dispatches[0] - d_loop
+    tracked = len(frames) - 1
+    reloc = [i for i, r in enumerate(flight["records"]) if r.get("relocalized")]
+    replayed = tracked - i_reloc if i_reloc < FLIGHT_DEPTH * 2 + 1 else 0
+    checks = {
+        "relocalized inside the second flight": reloc == [i_reloc]
+        and FLIGHT_DEPTH < i_reloc < len(frames) - 1,
+        "records bit-equal": loop["records"] == flight["records"],
+        "poses bit-equal": all(np.array_equal(a, b) for a, b in zip(loop["poses"], flight["poses"])),
+        "rest of the flight replayed": d_loop == tracked and d_flight == tracked + replayed,
+        "errors": slam.backend.errors == 0,
+    }
+    good = all(checks.values())
+    ok &= good
+    for k in COUNTERS:
+        total[k] += loop[k] + flight[k]
+    dmax = max(float(np.abs(a - b).max()) for a, b in zip(loop["poses"], flight["poses"]))
+    print(f"[flight] reloc sequence, SlamConfig() (back end on; pose updates applied at finish() "
+          f"in both runs), {len(frames)} frames: relocalized at {reloc} (expected [{i_reloc}]), "
+          f"dispatches loop {d_loop}, feed {d_flight} ({replayed} frames replayed after the "
+          f"relocalization), poses max|d| {dmax:.1e}; checks {checks} "
+          f"{'OK' if good else 'FAIL'}")
+    return ok, total
 
 
 def phase_times(records, timing):
@@ -1610,10 +2099,10 @@ def phase_times(records, timing):
         records[key].setdefault("levels", []).append(rec)
     # The top-level numbers of a record are those of its finest per-frame
     # layout (level 0, the largest) in float32; the scorer's layouts, the
-    # bfloat16 layouts and the skipped launch stay in "levels".
+    # bfloat16 layouts and the skipped and held launches stay in "levels".
     for rec in records.values():
         finest = [l for l in rec["levels"]
-                  if not l["level"].startswith(("reloc", "bf16", "skipped", "kalman"))][-1]
+                  if not l["level"].startswith(("reloc", "bf16", "skipped", "kalman", "held"))][-1]
         rec.update({k: v for k, v in finest.items() if k != "level"})
         rec["library_ms"] = None  # no single PyTorch call computes any of these
 
@@ -1698,29 +2187,52 @@ COUNTERS = {
     "ic_sigma_phases": (kernels.ic_normal_eq, "sigma_phases"),
     "fusion": (fusion.fuse_frame, "launches"),
     "irls_solve": (kernels.irls_solve_step, "launches"),
+    "consensus_vote": (consensus.consensus_vote, "launches"),
 }
 
 
-def expected_launches(tc, tracked: int, rerun_iters: int = 0, rescues: int = 0) -> dict:
-    """IRLS counts a run must make: one launch per iteration (40 per tracked
-    frame) in every mode, and under the consensus (ESM) the iterations of
-    its masked reruns, 40 iterations plus two level-0 evidence evaluations
-    per rescue, and one stratified launch per vote (two per tracked frame);
-    max(sigma_iters, 1) scale phases inside each IC exact launch, and no
-    standalone scale launch. ``rerun_iters`` and ``rescues`` are the
-    tracker's own host counts."""
-    per_frame = sum(tc.iters[: tc.levels])
+def _n_iters(tc, level: int) -> int:
+    return tc.iters[level] if level < len(tc.iters) else tc.iters[-1]
+
+
+def _vote_levels(tc):
+    return range(1, min(tc.consensus_level, tc.levels - 1) + 1)
+
+
+def expected_launches(tc, tracked: int, fusion_on: bool = True) -> dict:
+    """Launches a run must make. Every tracked frame is one replay of the
+    captured step, whose launches are fixed: one per IRLS iteration (40 at
+    the default iters) in every mode; under the consensus (ESM) also the
+    masked reruns' (the vote levels' iterations, 18) and the rescue
+    pyramid's (40, plus two level-0 evidence evaluations), each held on
+    the device unless its vote fires, and one stratified and one vote
+    launch per vote (two each); one fusion launch per tracked frame
+    (copying the planes through unless the frame fuses); in IC exact
+    max(sigma_iters, 1) scale phases inside each IC launch, and no
+    standalone scale launch."""
+    per_frame = sum(_n_iters(tc, l) for l in range(tc.levels))
     iters = tracked * per_frame
+    out = {"fusion": tracked if fusion_on else 0}
     if tc.jacobian == "esm":
         votes = 0
         if tc.consensus:
-            votes = tracked * len(range(1, min(tc.consensus_level, tc.levels - 1) + 1))
-            iters += rerun_iters + rescues * (per_frame + 2)
-        return {"esm_normal_eq": iters, "esm_stratified": votes, "ic_normal_eq": 0,
-                "ic_sigma_stats": 0, "ic_sigma_phases": 0}
+            votes = tracked * len(_vote_levels(tc))
+            reruns = sum(_n_iters(tc, l) for l in _vote_levels(tc))
+            iters += tracked * (reruns + per_frame + 2)
+        return {**out, "esm_normal_eq": iters, "esm_stratified": votes, "consensus_vote": votes,
+                "ic_normal_eq": 0, "ic_sigma_stats": 0, "ic_sigma_phases": 0}
     sigma = iters * max(tc.sigma_iters, 1) if tc.sigma_mode == "exact" else 0
-    return {"esm_normal_eq": 0, "esm_stratified": 0, "ic_normal_eq": iters,
-            "ic_sigma_stats": 0, "ic_sigma_phases": sigma}
+    return {**out, "esm_normal_eq": 0, "esm_stratified": 0, "consensus_vote": 0,
+            "ic_normal_eq": iters, "ic_sigma_stats": 0, "ic_sigma_phases": sigma}
+
+
+def expected_runs(tc, tracked: int, rerun_iters: int, rescues: int) -> int:
+    """IRLS launches that must RUN on the device (the rest held by their
+    predicate word): 40 per tracked frame, plus the consensus's rerun
+    iterations, plus 42 per rescue (40 iterations and two level-0 evidence
+    evaluations), as the frames' result vectors report them."""
+    per_frame = sum(_n_iters(tc, l) for l in range(tc.levels))
+    return tracked * per_frame + rerun_iters + rescues * (per_frame + 2)
 
 
 def _consensus_trace(stats):
@@ -1741,13 +2253,16 @@ def phase_main(cfg, label: str, mover: bool = False, loop: bool = False):
         frames, gt = make_mover_sequence() if mover else make_sequence()
         bound, kind = (MOVER_ATE_BOUND_M, "mover") if mover else (ATE_BOUND_M, "rigid")
     slam = port.SlamSystem(TUM_FR1, cfg, device="cuda")
-    # Warm-up on a short prefix (library init, allocator), then a fresh run.
+    # Warm-up on a short prefix (kernel builds, the graph's capture), then a
+    # fresh run: reset() keeps the graph.
     _run_sequence(slam, frames[:4])
     slam.reset()
     torch.cuda.synchronize()
     for wrapper, attr in COUNTERS.values():
         setattr(wrapper, attr, 0)
+    kernels.reset_iteration_counts("cuda")
     reads0, counts0 = slam.host_reads, slam.tracker_counts
+    replays0, captures0 = slam._step.replays, slam._step.captures
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1758,11 +2273,16 @@ def phase_main(cfg, label: str, mover: bool = False, loop: bool = False):
     launches = {name: getattr(wrapper, attr) for name, (wrapper, attr) in COUNTERS.items()}
     reads = slam.host_reads - reads0
     counts = {k: v - counts0[k] for k, v in slam.tracker_counts.items()}
+    replays = slam._step.replays - replays0
+    captures = slam._step.captures - captures0
+    ran = int(kernels.iteration_counts("cuda")[1].sum())
     # Every synchronizing operation PyTorch reports in the run should be
-    # one of the deliberate host reads (none inside the IRLS loop).
+    # one of the deliberate host reads: one per tracked frame (its flight
+    # of one) and one per finalize.
     syncs = sum(str(w.message).startswith("called a synchronizing") for w in caught)
     tracked = len(frames) - 1
-    expected = expected_launches(tc, tracked, counts["rerun_iters"], counts["rescues"])
+    expected = expected_launches(tc, tracked)
+    runs_expected = expected_runs(tc, tracked, counts["rerun_iters"], counts["rescues"])
     switches = sum(bool(s.get("switch")) for s in slam.stats)
     lost = sum(bool(s.get("lost")) for s in slam.stats)
     fused = sum(s.get("n_fused", 0) > 0 for s in slam.stats)
@@ -1798,9 +2318,11 @@ def phase_main(cfg, label: str, mover: bool = False, loop: bool = False):
     steady = ms[5:]
     cnt = ", ".join(f"{k} {launches[k]} (expected {v})" for k, v in expected.items())
     print(f"[main {label}] SlamSystem VGA {TUM_FR1.width}x{TUM_FR1.height}, "
-          f"{kind} sequence, {len(frames)} frames ({tracked} tracked): "
-          f"counts {cnt}, fusion launches {launches['fusion']} (expected 1 per fused frame: "
-          f"{fused}); consensus reruns {counts['rerun_iters']} iterations, rescues "
+          f"{kind} sequence, {len(frames)} frames ({tracked} tracked): graph replays {replays} "
+          f"(expected {tracked}), captures {captures} (expected 0: reset() keeps the graph), "
+          f"graph nodes {slam._step.graph_nodes}; launches {cnt}; IRLS launches run on the "
+          f"device {ran} (expected {runs_expected} = 40/frame + reruns + 42/rescue), fused "
+          f"frames {fused}; consensus reruns {counts['rerun_iters']} iterations, rescues "
           f"{counts['rescues']}; switches {switches}, lost {lost}, keyframes {n_kf}, odometry "
           f"edges {len(edges)} ({sum(e.episode for e in edges)} episode-tagged) ok {edges_ok}, "
           f"reloc planes on every keyframe {planes_ok}, finalize reads {finalize_reads}")
@@ -1820,11 +2342,16 @@ def phase_main(cfg, label: str, mover: bool = False, loop: bool = False):
           f"{np.percentile(steady, q):.2f} (min {np.min(steady):.2f}, max "
           f"{np.max(steady):.2f}) over {len(steady)} frames (5..{len(frames) - 1}) of the "
           f"rerun; host reads "
-          f"{reads} = {reads / tracked:.2f}/tracked frame; synchronizing operations "
+          f"{reads} = {reads / tracked:.2f}/tracked frame (expected 1 + finalizes "
+          f"{finalize_reads / tracked:.2f}); synchronizing operations "
           f"reported by torch.cuda sync-debug mode {syncs}")
     good = (
         all(launches[k] == v for k, v in expected.items())
-        and launches["fusion"] == fused >= 1
+        and fused >= 1
+        and replays == tracked
+        and captures == 0
+        and ran == runs_expected
+        and reads == tracked + finalize_reads
         and switches >= 1
         and lost == 0
         and finite
@@ -2121,10 +2648,10 @@ def _drive(slam, frames, debug_syncs: bool):
 
 def _reads_text(run, tracked: int):
     """The run's host reads by part, as text, and whether the step's parts
-    add up: one result per tracked frame, one ``n_fused`` per fusion launch,
-    one read per vote and one per rescue."""
-    step = {"step results": tracked, "n_fused": run["fusion"], "votes": run["esm_stratified"],
-            "rescue evidence": run["rescues"]}
+    add up: one read of the result vectors per flight (a tracked frame
+    under ``process_frame``), and nothing else: the votes, the fusion and
+    the rescue are decided on the device."""
+    step = {"flights": tracked}
     named = sum(step.values()) == run["step_reads"]
     on_thread = run["thread_finalizes"]
     return (", ".join(f"{k} {v}" for k, v in step.items())
@@ -2248,14 +2775,13 @@ def phase_backend():
               == run["step_reads"] + run["finalize_reads"] + run["scorer_reads"],
               f"{run['reads']} host reads, {run['syncs']} syncs reported by the sync-debug mode "
               f"(process-wide: the thread's too): {text};")
-    expected = expected_launches(cfg_on.tracking, tracked, on["rerun_iters"], on["rescues"])
+    expected = expected_launches(cfg_on.tracking, tracked)
     per_frame = {k: on[k] for k in COUNTERS}
     pairs = lc.n_candidates
     check("launches", per_frame == {k: off[k] for k in COUNTERS}
           and all(on[k] == v for k, v in expected.items())
           and on["scorer_launches"] == on["scorer_steps"] == 3 * b.reloc_iters * pairs
-          and on["scorer_reads"] == len(be.timings.get("score_pairs", []))
-          and on["fusion"] == sum(r.get("n_fused", 0) > 0 for r in on["records"]),
+          and on["scorer_reads"] == len(be.timings.get("score_pairs", [])),
           f"per-frame counts on {per_frame} = off; the scorer's own count "
           f"{on['scorer_launches']} (expected 3 x {b.reloc_iters} x {pairs} pairs = "
           f"{3 * b.reloc_iters * pairs}) in {on['scorer_reads']} calls;")
@@ -2364,7 +2890,7 @@ def phase_reloc():
     after = [float(np.linalg.norm(slam.poses()[i][:3, 3] - (np.linalg.inv(gt[0]) @ gt[i])[:3, 3]))
              for i in (i_reloc + 1, i_reloc + 2)]
     counts = slam.tracker_counts
-    expected = expected_launches(cfg.tracking, tracked, counts["rerun_iters"], counts["rescues"])
+    expected = expected_launches(cfg.tracking, tracked)
     iters = cfg.backend.reloc_iters
     pairs, rest = divmod(lc.scorer.irls_steps, 3 * iters)
     reads = slam.host_reads
@@ -2374,7 +2900,6 @@ def phase_reloc():
           and err_kf < RELOC_POSE_TOL_M and all(e < RELOC_POSE_TOL_M for e in after)
           and syncs == reads
           and all(launches[k] == v for k, v in expected.items())
-          and launches["fusion"] == sum(rec.get("n_fused", 0) > 0 for rec in stats)
           and lc.scorer.launches == lc.scorer.irls_steps and rest == 0
           and pairs > lc.n_candidates >= 0
           and all(np.isfinite(T).all() for T in slam.poses()))
@@ -2416,10 +2941,8 @@ def _gauntlet_row(name, seq_kwargs, cfg_over, frames, intr, base_over, cache):
     launches = {k: getattr(wrapper, attr) for k, (wrapper, attr) in COUNTERS.items()}
     slam = cache[key]
     counts = {k: v - counts0[k] for k, v in slam.tracker_counts.items()}
-    expected = expected_launches(slam.config.tracking, row["frames"] - 1, counts["rerun_iters"],
-                                 counts["rescues"])
-    fused = sum(rec.get("n_fused", 0) > 0 for rec in slam.stats)
-    exact = all(launches[k] == v for k, v in expected.items()) and launches["fusion"] == fused
+    expected = expected_launches(slam.config.tracking, row["frames"] - 1)
+    exact = all(launches[k] == v for k, v in expected.items())
     return row, slam, launches, exact
 
 
@@ -2554,10 +3077,8 @@ GAUNTLET_PRESET_BOUND_MM = 2 * 1.773
 
 
 def _fixed_reads(run) -> int:
-    """The step's reads that do not depend on what a frame decided: one
-    result per tracked frame and one per vote (n_fused reads and the
-    rescues' evidence reads aside)."""
-    return run["step_reads"] - run["fusion"] - run["rescues"]
+    """The step's reads: one per flight, whatever the frames decided."""
+    return run["step_reads"]
 
 
 def phase_preset():
@@ -2617,12 +3138,16 @@ def phase_preset():
         again = _drive(slam, frames, False)
         add(run)
         tracked = len(frames) - 1
-        expected = expected_launches(tc, tracked, run["rerun_iters"], run["rescues"])
-        fused = sum(r.get("n_fused", 0) > 0 for r in run["records"])
-        launches_ok = all(run[k] == v for k, v in expected.items()) and run["fusion"] == fused
+        expected = expected_launches(tc, tracked)
+        launches_ok = all(run[k] == v for k, v in expected.items())
         levels = tc.levels
-        slots_ok = (int(launched.sum()) == run["esm_normal_eq"] - 2 * run["rescues"]
-                    and bool((ran <= launched).all()) and int(launched[levels:].sum()) == 0)
+        # Every ESM launch of the step has a slot: the iterations their
+        # level's, the rescue's two evidence evaluations kernels.EVAL_SLOT.
+        slots_ok = (int(launched.sum()) == run["esm_normal_eq"]
+                    and bool((ran <= launched).all())
+                    and int(launched[levels:kernels.EVAL_SLOT].sum()) == 0
+                    and int(launched[kernels.EVAL_SLOT]) == 2 * tracked
+                    and int(ran[kernels.EVAL_SLOT]) == 2 * run["rescues"])
         reads_text, named = _reads_text(run, tracked)
         fixed_eq = _fixed_reads(run) == _fixed_reads(ref)
         ate = sequence_ate(gt, run["poses"])
@@ -2994,8 +3519,7 @@ def phase_tum(smi: str):
     tracked = len(frames) - 1
     fused = sum(r.get("n_fused", 0) > 0 for r in recs)
     counts = slam.tracker_counts
-    expected = expected_launches(slam.config.tracking, tracked, counts["rerun_iters"],
-                                 counts["rescues"])
+    expected = expected_launches(slam.config.tracking, tracked)
     cli_ms = [r["ms"] for r in recs[5:]]
     checks = {
         "rc": rc == 0,
@@ -3005,8 +3529,7 @@ def phase_tum(smi: str):
         "poses bit-equal": poses_equal,
         "timestamps": stamps,
         "launches": cli_counts == mem_counts
-        and all(mem_counts[k] == v for k, v in expected.items())
-        and mem_counts["fusion"] == fused >= 1,
+        and all(mem_counts[k] == v for k, v in expected.items()) and fused >= 1,
         "fuse_inverse_depth": fid_ok and fid_counts["fusion"] == 1
         and sum(fid_counts.values()) == 1,
     }
@@ -3062,7 +3585,7 @@ def phase_live(smi: str):
     counts = _read_counts()
     tc = slam.config.tracking
     tr = slam.tracker_counts
-    expected = expected_launches(tc, len(got) - 1, tr["rerun_iters"], tr["rescues"])
+    expected = expected_launches(tc, len(got) - 1)
     fused = sum(s.get("n_fused", 0) > 0 for s in slam.stats)
     lost = sum(bool(s.get("lost")) for s in slam.stats)
     checks = {
@@ -3071,7 +3594,7 @@ def phase_live(smi: str):
         "overlapped the capture": first_at is not None and first_at < done[0],
         "ended on idle": ended - done[0] >= LIVE_IDLE_S,
         "lost": lost == 0,
-        "launches": all(counts[k] == v for k, v in expected.items()) and counts["fusion"] == fused,
+        "launches": all(counts[k] == v for k, v in expected.items()),
     }
     ok = all(checks.values())
     print(f"[live] LiveSource on a TUM directory grown by a writer thread ({LIVE_FRAMES} QVGA "
@@ -3112,9 +3635,7 @@ def phase_snapshot(smi: str):
     counts = _read_counts()
     tc = a.config.tracking
     ca, cb = a.tracker_counts, b.tracker_counts
-    expected = expected_launches(tc, len(frames) - 1 + len(frames) - SNAPSHOT_AT,
-                                 ca["rerun_iters"] + cb["rerun_iters"],
-                                 ca["rescues"] + cb["rescues"])
+    expected = expected_launches(tc, len(frames) - 1 + len(frames) - SNAPSHOT_AT)
     fused = (sum(s.get("n_fused", 0) > 0 for s in a.stats)
              + sum(s.get("n_fused", 0) > 0 for s in b.stats[SNAPSHOT_AT:]))
     records_equal = _records(b.stats) == _records(a.stats)
@@ -3122,7 +3643,7 @@ def phase_snapshot(smi: str):
     off = {
         "records bit-equal": records_equal and len(b.stats) == len(frames),
         "poses bit-equal": poses_equal,
-        "launches": all(counts[k] == v for k, v in expected.items()) and counts["fusion"] == fused,
+        "launches": all(counts[k] == v for k, v in expected.items()),
     }
     print(f"[snapshot] back end off, rigid sequence: saved after {SNAPSHOT_AT} frames "
           f"({os.path.getsize(path)} B, save {save_ms:.1f} ms, restore on the card "
@@ -3154,15 +3675,13 @@ def phase_snapshot(smi: str):
     back.finish()
     tc = slam.config.tracking
     tr = slam.tracker_counts
-    expected = expected_launches(tc, len(frames) - 1, tr["rerun_iters"], tr["rescues"])
-    fused = sum(s.get("n_fused", 0) > 0 for s in slam.stats)
+    expected = expected_launches(tc, len(frames) - 1)
     on = {
         "errors": slam.backend.errors == 0 and back.backend.errors == 0,
         "loop edges equal": edges_equal,
         "BoW entries equal": bow_equal,
         "processed": processed,
-        "launches": all(loop_counts[k] == v for k, v in expected.items())
-        and loop_counts["fusion"] == fused,
+        "launches": all(loop_counts[k] == v for k, v in expected.items()),
     }
     print(f"[snapshot] back end on, loop sequence: saved after finish() "
           f"({os.path.getsize(path)} B), restored on the card: loop edges {len(e1)} of "
@@ -3344,15 +3863,18 @@ def phase_spmd(smi: str):
         r0 = outs[0]
         res, ref = r0["result"], r0["ref"]
         tc = cfg.tracking
-        per_frame = sum(tc.iters[: tc.levels])
-        iters = per_frame + res.rerun_iters + (per_frame if res.rescue_ran else 0)
+        per_frame = sum(_n_iters(tc, l) for l in range(tc.levels))
+        # Every launch is enqueued (the reruns and the rescue held unless
+        # their vote fires): the main pyramid, the vote levels' reruns, the
+        # rescue pyramid, and the rescue's two evidence evaluations.
+        iters = 2 * per_frame + sum(_n_iters(tc, l) for l in _vote_levels(tc))
         counts = r0["counts"]
         checks = {
             "ranks bit-identical": all(_same_result(o["result"], res) for o in outs[1:]),
             "launches": all(o["counts"] == counts for o in outs)
             and counts["irls_solve"] == iters
-            and counts["esm_normal_eq"] == iters + (2 if res.rescue_ran else 0)
-            and counts["esm_stratified"] == 2,
+            and counts["esm_normal_eq"] == iters + 2
+            and counts["esm_stratified"] == counts["consensus_vote"] == 2,
         }
         if world == 1:
             checks["bit-equal to Tracker"] = _same_result(res, ref)
@@ -3366,7 +3888,7 @@ def phase_spmd(smi: str):
             and np.allclose(res.n_valid.cpu().numpy(), ref.n_valid.cpu().numpy(), rtol=1e-6,
                             atol=0)
             and abs(float(res.overlap) - float(ref.overlap)) <= 1e-5 * abs(float(ref.overlap))
-            and np.array_equal(res.cons_excluded, ref.cons_excluded))
+            and torch.equal(res.cons_excluded, ref.cons_excluded))
         if "reloc" in r0:
             checks["shard_reloc_batch = score_pairs"] = all(
                 all(np.array_equal(a, b) for a, b in zip(*o["reloc"])) for o in outs)
@@ -3380,7 +3902,8 @@ def phase_spmd(smi: str):
               f"from ground truth, H {h_share:.2f} of tol, "
               f"n_valid {float(res.n_valid[0]):.0f} ({float(ref.n_valid[0]):.0f}), "
               f"cons_excluded {res.cons_excluded.tolist()}, rerun iterations "
-              f"{res.rerun_iters}, rescue {res.rescue_ran}; launches on rank 0 {counts}; "
+              f"{float(res.rerun_iters):.0f}, rescue ran {float(res.rescue_ran):.0f}; launches "
+              f"on rank 0 {counts}; "
               f"all-reduces per tracked pair {r0['allreduces']}; wall {wall:.1f} s with the "
               f"ranks' start")
         print(f"[spmd] {world} rank(s): ms per tracked pair, median of {SPMD_REPS}: sharded "
@@ -3399,7 +3922,8 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     k_ok, records, timing = phase_kernels(slice_config())
-    s_ok, s_records, s_timing = phase_stratified()
+    s_ok, s_records, s_timing, vote_sums = phase_stratified()
+    v_ok, records["consensus_vote"], v_timing = phase_consensus_vote(vote_sums)
     ic_ok, ic_records, ic_timing = phase_ic_kernels()
     records.update(s_records)
     records.update(ic_records)
@@ -3407,8 +3931,10 @@ def main() -> int:
     b_ok, b_timing = phase_bf16_kernels(records)
     e_ok, e_timing = phase_early_exit()
     so_ok, so_timing = phase_solve(records)
-    timing += s_timing + ic_timing + r_timing + b_timing + e_timing + so_timing
-    k_ok = k_ok and s_ok and ic_ok and r_ok and b_ok and e_ok and so_ok
+    go_ok, go_timing = phase_go(records)
+    timing += s_timing + ic_timing + r_timing + b_timing + e_timing + so_timing + v_timing
+    timing += go_timing
+    k_ok = k_ok and s_ok and ic_ok and r_ok and b_ok and e_ok and so_ok and v_ok and go_ok
     runs = [("esm consensus off", slice_config(), False), ("default", default_config(), False),
             ("default mover", default_config(), True), ("ic lagged", ic_config("lagged"), False),
             ("ic exact", ic_config("exact"), False)]
@@ -3418,6 +3944,11 @@ def main() -> int:
         m_ok &= good
         for k, v in launches.items():
             total[k] += v
+    # Flights: feed(flight_depth=32) against the process_frame loop.
+    f_ok, f_launches = phase_flight(smi)
+    m_ok &= f_ok
+    for k in COUNTERS:
+        total[k] += f_launches[k]
     # This slice's own path: loop verification and pose-graph correction.
     sc_ok, scorer_ms = phase_scorer()
     good, launches, median["loop"], loop_out = phase_loop()
@@ -3480,7 +4011,8 @@ def main() -> int:
     # beside it.
     for key, counter in (("esm", "esm_normal_eq"), ("esm_stratified", "esm_stratified"),
                          ("fusion", "fusion"), ("ic_normal", "ic_normal_eq"),
-                         ("ic_sigma", "ic_sigma_phases"), ("irls_solve", "irls_solve")):
+                         ("ic_sigma", "ic_sigma_phases"), ("irls_solve", "irls_solve"),
+                         ("consensus_vote", "consensus_vote")):
         records[key]["launches"] = total[counter]
     # The ESM kernel's launches on the loop-verification path, counted by
     # the scorer (they never enter the per-frame count), stand beside the
@@ -3496,7 +4028,7 @@ def main() -> int:
                           orb_ms=float(np.median(list(orb_ms.values()))), **backend_record)
     records["ic_sigma"]["standalone_launches"] = total["ic_sigma_stats"]
     kern = [records[k] for k in ("esm", "esm_stratified", "fusion", "ic_normal", "ic_sigma",
-                                 "irls_solve")]
+                                 "irls_solve", "consensus_vote")]
     print(json.dumps({"kernels": kern}))
     if not (k_ok and m_ok):
         print(f"chip_smoke: FAILED (kernels {'ok' if k_ok else 'failed'}, main "

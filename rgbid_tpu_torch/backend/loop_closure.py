@@ -147,12 +147,13 @@ class BackendThread:
     # ------------------------------------------------------------------
     def submit(self, kf: Keyframe, device_state=None) -> None:
         """Queue a retired keyframe for the back end. ``device_state`` (the
-        retiring DeviceKeyframe) requests FINALIZATION on this thread
-        first: the packed read and the cloud extraction move off the front
-        end's critical path, and the reference held here keeps the planes
-        alive until then. No step of the front end writes into a
-        keyframe's tensors in place, so a late read sees the state as it
-        was retired."""
+        retiring keyframe's state, or the planes a finalize reads of it,
+        packed: the front end's copy of its retire-ring slot) requests
+        FINALIZATION on this thread first: the packed read and the cloud
+        extraction move off the front end's critical path. The front end
+        hands over a copy of its own (the ring slot and the graph's state
+        buffers are overwritten by later frames), so a late read sees the
+        state as it was retired."""
         if kf.kf_id not in self._processed:
             self._processed.add(kf.kf_id)
             self._queue.put((kf, device_state))

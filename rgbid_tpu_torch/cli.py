@@ -160,9 +160,9 @@ def main(argv=None):
         logger = JsonlLogger(None)
 
     # Ingestion: a background thread reads frames (prefetch_frames) while
-    # the main thread feeds them in chunks of config.pipeline_depth. The
-    # port's feed() processes one frame at a time, so the depth only sizes
-    # the chunks.
+    # the main thread feeds them in chunks of config.pipeline_depth: each
+    # chunk is one flight (feed dispatches its frames, then reads their
+    # results back once).
     if args.max_frames is not None:
         frames = itertools.islice(frames, args.max_frames)
 

@@ -55,7 +55,7 @@ def keyframe_from_reference(kf, device) -> DeviceKeyframe:
     return DeviceKeyframe(
         levels=levels,
         var=_t(kf.var, device),
-        fused_count=int(np.asarray(kf.fused_count)),
+        fused_count=torch.from_numpy(np.asarray(kf.fused_count, np.int32).reshape(())).to(device),
         hits=_t(kf.hits, device),
         mask_full=_t(kf.mask_full, device),
     )
@@ -65,25 +65,25 @@ def keyframe_to_numpy(kf: DeviceKeyframe) -> HostKeyframe:
     return HostKeyframe(
         levels=tuple((_n(l.intensity), _n(l.xi), _n(l.mask), _n(l.jac)) for l in kf.levels),
         var=_n(kf.var),
-        fused_count=int(kf.fused_count),
+        fused_count=int(_n(kf.fused_count)),
         hits=_n(kf.hits),
         mask_full=_n(kf.mask_full),
     )
 
 
 def motion_from_reference(m, device) -> MotionState:
-    """The JAX package's MotionState (numpy leaves) -> the port's. The
-    consensus streaks (cons_excluded) stay a host float32 array, where the
-    port keeps them; a state without them (None) keeps None."""
+    """The JAX package's MotionState (numpy leaves) -> the port's, the
+    consensus streaks (cons_excluded) a float32 device vector like the rest;
+    a state without them (None) keeps None."""
     streaks = getattr(m, "cons_excluded", None)
     return MotionState(
         T_ck=_t(m.T_ck, device),
         delta=_t(m.delta, device),
         lost_count=_t(m.lost_count, device).reshape(()),
-        cons_excluded=None if streaks is None else np.array(streaks, dtype=np.float32),
+        cons_excluded=None if streaks is None else _t(streaks, device),
     )
 
 
 def motion_to_numpy(m: MotionState) -> HostMotion:
-    streaks = None if m.cons_excluded is None else np.array(m.cons_excluded, dtype=np.float32)
+    streaks = None if m.cons_excluded is None else _n(m.cons_excluded).astype(np.float32)
     return HostMotion(_n(m.T_ck), _n(m.delta), _n(m.lost_count), streaks)

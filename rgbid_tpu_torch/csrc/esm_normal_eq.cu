@@ -53,6 +53,11 @@
 // iteration's step norm is <= p.tol (irls::converged). The host still
 // enqueues every iteration of the budget; a skipped launch costs its
 // launch and one read of 6 floats, and leaves the workspace untouched.
+//
+// Predicate: a launch given a device word ``go`` returns at entry when the
+// word is 0, after block 0 copies ``hold`` to ``out`` (irls::held): the
+// consensus's masked reruns and the rescue pyramid are always enqueued and
+// run only when their vote says so.
 
 #include <cuda_runtime.h>
 
@@ -108,7 +113,9 @@ esm_kernel(EsmParams p, const float* __restrict__ T, const float* __restrict__ s
            const float* __restrict__ kf_grads, const StackT* __restrict__ cur,
            float* __restrict__ partials, unsigned int* __restrict__ counter,
            float* __restrict__ out, const float* __restrict__ prev,
-           unsigned int* __restrict__ runs) {
+           unsigned int* __restrict__ runs, const int* __restrict__ go,
+           const float* __restrict__ hold) {
+  if (irls::held(go, hold, out)) return;
   if (irls::converged(prev, p.tol, out)) return;
   float acc[kNormalSums];
 #pragma unroll
@@ -140,6 +147,8 @@ struct EsmArgs {
   float* out;
   const float* prev;
   unsigned int* runs;
+  const int* go;
+  const float* hold;
 };
 
 template <int C, typename IntT, typename PtT, typename StackT>
@@ -148,7 +157,7 @@ void launch(const EsmParams& p, int blocks, const EsmArgs& a, cudaStream_t st) {
       p, a.T, a.s2i, a.s2x, static_cast<const IntT*>(a.kf_int),
       static_cast<const PtT*>(a.px), static_cast<const PtT*>(a.py),
       static_cast<const PtT*>(a.pz), a.kf_mask, a.kf_grads, static_cast<const StackT*>(a.cur),
-      a.partials, a.counter, a.out, a.prev, a.runs);
+      a.partials, a.counter, a.out, a.prev, a.runs, a.go, a.hold);
 }
 
 template <typename IntT, typename PtT, typename StackT>
@@ -177,18 +186,20 @@ cudaError_t by_channels(int channels, const EsmParams& p, int blocks, const EsmA
 // bf16 points. ``partials`` holds max_blocks rows of 32 floats; ``counter``
 // is 0 on entry and is 0 again when the launch ends. ``prev``: the previous
 // iteration's out, or nullptr; ``runs``: the level's slot of the count of
-// iterations run, or nullptr.
+// iterations run, or nullptr; ``go``: the launch's predicate word, or
+// nullptr, and ``hold`` the kOut floats it copies when the word is 0
+// (irls::held).
 extern "C" int esm_irls_launch(EsmParams p, int channels, int types, int max_blocks,
                                const float* T, const float* s2i, const float* s2x,
                                const void* kf_int, const void* px, const void* py,
                                const void* pz, const float* kf_mask, const float* kf_grads,
                                const void* cur, float* partials, unsigned int* counter,
                                float* out, const float* prev, unsigned int* runs,
-                               void* stream) {
+                               const int* go, const float* hold, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = max(1, min((p.n + kThreads - 1) / kThreads, max_blocks));
   const EsmArgs a{T, s2i, s2x, kf_int, px, py, pz, kf_mask, kf_grads, cur, partials, counter,
-                  out, prev, runs};
+                  out, prev, runs, go, hold};
   using bf = __nv_bfloat16;
   cudaError_t e;
   switch (types) {

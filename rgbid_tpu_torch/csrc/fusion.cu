@@ -25,6 +25,11 @@
 // makes one launch where the two-launch design before it also wrote and
 // read fuse and claim planes and ran ~40 small PyTorch ops around it.
 //
+// Predicate: every tracked frame enqueues the launch; a device word says
+// whether the frame fuses (kept and on the cadence, the JAX package's
+// lax.switch / lax.cond); when it does not, the launch copies its input
+// planes through and writes n_fused = 0.
+//
 // Determinism: the one atomic counts block arrivals; the count is summed
 // in block-index order, and no float is added atomically.
 
@@ -57,12 +62,33 @@ fusion_kernel(FusionParams p, const float* __restrict__ T, const float* __restri
               float* __restrict__ xi_out, float* __restrict__ var_out,
               float* __restrict__ mask_out, float* __restrict__ hits_out,
               float* __restrict__ partials, unsigned int* __restrict__ counter,
-              float* __restrict__ n_fused) {
+              float* __restrict__ n_fused, const int* __restrict__ go) {
+  const int n = p.h * p.w;
+  const int quads = (n + 3) / 4;
+  if (go != nullptr && *go == 0) {
+    // Not a fused frame: the planes come out as they went in, n_fused 0.
+    for (int q = blockIdx.x * kThreads + threadIdx.x; q < quads; q += gridDim.x * kThreads) {
+      const int i = 4 * q;
+      if (Vec && i + 4 <= n) {
+        *reinterpret_cast<float4*>(xi_out + i) = ro4(kf_xi + i);
+        *reinterpret_cast<float4*>(var_out + i) = ro4(kf_var + i);
+        *reinterpret_cast<float4*>(mask_out + i) = ro4(kf_mask + i);
+        *reinterpret_cast<float4*>(hits_out + i) = ro4(kf_hits + i);
+      } else {
+        for (int k = i; k < i + 4 && k < n; ++k) {
+          xi_out[k] = kf_xi[k];
+          var_out[k] = kf_var[k];
+          mask_out[k] = kf_mask[k];
+          hits_out[k] = kf_hits[k];
+        }
+      }
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) *n_fused = 0.f;
+    return;
+  }
   __shared__ fusion::Pose pose;
   if (threadIdx.x == 0) fusion::load_pose(p, T, cov, pose);
   __syncthreads();
-  const int n = p.h * p.w;
-  const int quads = (n + 3) / 4;
   float count = 0.f;
   for (int q = blockIdx.x * kThreads + threadIdx.x; q < quads; q += gridDim.x * kThreads) {
     const int i = 4 * q;
@@ -110,13 +136,16 @@ fusion_kernel(FusionParams p, const float* __restrict__ T, const float* __restri
 }  // namespace
 
 // One fused frame. ``partials`` holds max_blocks floats; ``counter`` is 0
-// on entry and is 0 again when the launch ends.
+// on entry and is 0 again when the launch ends. ``go``: the launch's
+// predicate word (the frame is kept and on the fusion cadence), or
+// nullptr; with a word of 0 the launch copies the four input planes to the
+// outputs, writes n_fused = 0 and touches no partial or counter word.
 extern "C" int fusion_launch(FusionParams p, int max_blocks, const float* T, const float* cov,
                              const float* kf_xi, const float* kf_var, const float* kf_mask,
                              const float* kf_hits, const float* cur_xi, const float* cur_mask,
                              float* xi_out, float* var_out, float* mask_out, float* hits_out,
                              float* partials, unsigned int* counter, float* n_fused,
-                             void* stream) {
+                             const int* go, void* stream) {
   if (p.n_coarse < 0 || p.n_coarse > fusion::kMaxCoarse) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -129,11 +158,11 @@ extern "C" int fusion_launch(FusionParams p, int max_blocks, const float* T, con
   if (aligned) {
     fusion_kernel<true><<<blocks, kThreads, 0, st>>>(p, T, cov, kf_xi, kf_var, kf_mask, kf_hits,
                                                      cur_xi, cur_mask, xi_out, var_out, mask_out,
-                                                     hits_out, partials, counter, n_fused);
+                                                     hits_out, partials, counter, n_fused, go);
   } else {
     fusion_kernel<false><<<blocks, kThreads, 0, st>>>(p, T, cov, kf_xi, kf_var, kf_mask, kf_hits,
                                                       cur_xi, cur_mask, xi_out, var_out, mask_out,
-                                                      hits_out, partials, counter, n_fused);
+                                                      hits_out, partials, counter, n_fused, go);
   }
   return static_cast<int>(cudaGetLastError());
 }

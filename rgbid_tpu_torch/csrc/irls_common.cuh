@@ -283,6 +283,22 @@ __device__ __forceinline__ bool converged(const float* __restrict__ prev, float 
   return true;
 }
 
+// The predicate of a launch (the device word ``go``, nullptr: always runs).
+// A masked rerun or a rescue pyramid is always enqueued; its launches run
+// only when the word the consensus vote wrote is 1 (the counterpart of the
+// JAX package's lax.cond). With go == 0 every block returns at entry,
+// after block 0 has copied ``hold`` (kOut floats: the carry the chain
+// would otherwise have, the pose, scales and result included) to ``out``;
+// like a converged launch, it touches no partials, rows or counter words
+// and adds nothing to ``runs``. With go == 1 (or nullptr) the launch is
+// the one it would be without the word.
+__device__ __forceinline__ bool held(const int* __restrict__ go, const float* __restrict__ hold,
+                                     float* __restrict__ out) {
+  if (go == nullptr || *go != 0) return false;
+  if (blockIdx.x == 0 && threadIdx.x < kOut) out[threadIdx.x] = hold[threadIdx.x];
+  return true;
+}
+
 // The end of one IRLS iteration. Every thread of every block calls it once
 // its block's row of normal-equation partials is written. The last block
 // to arrive (last_to_arrive) sums every block's row in block-index order,

@@ -18,7 +18,8 @@
 // the fused layout (irls::kOut floats: result | T' | delta), so the next
 // iteration's early exit (``prev``) and ops/kernels.py's IrlsStep views
 // read it unchanged. Under the early exit, a ``prev`` whose step norm is
-// <= tol is copied to ``out`` and nothing else runs (irls::converged).
+// <= tol is copied to ``out`` and nothing else runs (irls::converged);
+// under a predicate word of 0, ``hold`` is (irls::held).
 
 #include <cuda_runtime.h>
 
@@ -32,7 +33,9 @@ static_assert(kSolveThreads >= irls::kOut, "one thread per output float");
 __global__ void __launch_bounds__(kSolveThreads)
 irls_solve_kernel(const float* __restrict__ result, const float* __restrict__ T, float damping,
                   float tol, float* __restrict__ out, const float* __restrict__ prev,
-                  unsigned int* __restrict__ runs) {
+                  unsigned int* __restrict__ runs, const int* __restrict__ go,
+                  const float* __restrict__ hold) {
+  if (irls::held(go, hold, out)) return;
   if (irls::converged(prev, tol, out)) return;
   const int t = threadIdx.x;
   if (t < irls::kResult) out[t] = result[t];
@@ -49,11 +52,13 @@ irls_solve_kernel(const float* __restrict__ result, const float* __restrict__ T,
 // out (irls::kOut floats) = [result (48) | T' (16) | delta (6)] from the
 // all-reduced ``result`` (48 floats), the pose ``T`` (16) and ``damping``.
 // ``prev``: the previous iteration's out, or nullptr; ``runs``: the level's
-// slot of the count of iterations run, or nullptr.
+// slot of the count of iterations run, or nullptr; ``go`` and ``hold``: the
+// launch's predicate word and what it copies when the word is 0
+// (irls::held), or nullptr.
 extern "C" int irls_solve_launch(float damping, float tol, const float* result, const float* T,
                                  float* out, const float* prev, unsigned int* runs,
-                                 void* stream) {
+                                 const int* go, const float* hold, void* stream) {
   irls_solve_kernel<<<1, kSolveThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      result, T, damping, tol, out, prev, runs);
+      result, T, damping, tol, out, prev, runs, go, hold);
   return static_cast<int>(cudaGetLastError());
 }

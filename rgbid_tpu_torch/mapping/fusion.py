@@ -6,7 +6,10 @@ guess, ``fuse_and_grow``). ``fuse_frame`` is the wrapper of the fusion
 kernel (``csrc/fusion.cu``, the counterpart of ``_fusion_kernel`` in
 ``rgbid_tpu/ops/pallas_kernels.py``): on a CPU tensor it runs
 ``fuse_frame_plain``, on a CUDA tensor it launches the kernel or raises.
-``fuse_frame.launches`` counts launches: one per fused frame.
+``fuse_frame.launches`` counts launches: one per tracked frame, since the
+per-frame step enqueues the launch on every frame with a device word that
+says whether the frame fuses (kept and on the cadence); on the other
+frames the launch copies the planes through.
 
 The kernel folds in what the JAX package computed outside its Pallas
 kernel: the pose-noise floor added to the tracker's covariance,
@@ -240,7 +243,7 @@ def fusion_params(levels, track_cov, intr: Intrinsics, cfg, grow: Optional[bool]
 
 def _fuse_frame_cuda(
     levels, kf_var, kf_mask, kf_hits, cur_xi, cur_mask, T_ck, track_cov,
-    intr: Intrinsics, cfg, grow: Optional[bool] = None, floor: bool = True,
+    intr: Intrinsics, cfg, grow: Optional[bool] = None, floor: bool = True, go=None,
 ):
     kf_xi = levels[0].xi
     dev = kf_xi.device
@@ -258,6 +261,8 @@ def _fuse_frame_cuda(
             _build.require(lv.xi, f"levels[{l}].xi", dev)
             if lv.xi.dim() != 2:
                 raise ValueError(f"levels[{l}].xi must be (H, W), got {tuple(lv.xi.shape)}")
+    if go is not None:
+        _build.require(go, "go", dev, (), dtypes=(torch.int32,))
     p = fusion_params(levels, track_cov, intr, cfg, grow, floor)
     ws = workspace(dev)
     xi_new, var_new = torch.empty_like(kf_xi), torch.empty_like(kf_xi)
@@ -268,7 +273,7 @@ def _fuse_frame_cuda(
         kf_var.data_ptr(), kf_mask.data_ptr(), kf_hits.data_ptr(), cur_xi.data_ptr(),
         cur_mask.data_ptr(), xi_new.data_ptr(), var_new.data_ptr(), mask_new.data_ptr(),
         hits_new.data_ptr(), ws.partials.data_ptr(), ws.counter.data_ptr(), n_fused.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        None if go is None else go.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "fusion_launch")
     fuse_frame.launches += 1
@@ -278,7 +283,7 @@ def _fuse_frame_cuda(
 def fuse_frame(
     levels: Sequence, kf_var: torch.Tensor, kf_mask: torch.Tensor, kf_hits: torch.Tensor,
     cur_xi: torch.Tensor, cur_mask: torch.Tensor, T_ck: torch.Tensor, track_cov: torch.Tensor,
-    intr: Intrinsics, cfg,
+    intr: Intrinsics, cfg, go: Optional[torch.Tensor] = None,
 ):
     """Fuse one frame into the keyframe: the pose-noise floor added to the
     tracker's covariance ``track_cov``, the hole guess from the keyframe's
@@ -286,20 +291,28 @@ def fuse_frame(
     validity growth, and the hit and mask update. ``levels`` are the
     keyframe's levels, finest first (only their ``xi`` is read);
     ``kf_mask`` is the full estimate mask; ``intr`` the level-0 camera.
-    Returns (xi', var', mask', hits', n_fused).
+    Returns (xi', var', mask', hits', n_fused). ``go``: an int32 device word;
+    where it is 0 the frame is not fused: the planes come back as they went
+    in and n_fused is 0 (the launch copies them through).
 
-    The device of ``levels[0].xi`` decides: CPU runs ``fuse_frame_plain``,
-    CUDA one launch of the fusion kernel, which reads nothing back to the
-    host. On CUDA the level-0 planes and the current frame's planes must
-    be contiguous (H, W) float32 on the same card, the coarse levels
-    contiguous float32, ``T_ck`` (4, 4) and ``track_cov`` (6, 6)."""
+    The device of ``levels[0].xi`` decides: CPU runs ``fuse_frame_plain``
+    (and selects under ``go``), CUDA one launch of the fusion kernel, which
+    reads nothing back to the host. On CUDA the level-0 planes and the
+    current frame's planes must be contiguous (H, W) float32 on the same
+    card, the coarse levels contiguous float32, ``T_ck`` (4, 4) and
+    ``track_cov`` (6, 6)."""
     args = (levels, kf_var, kf_mask, kf_hits, cur_xi, cur_mask, T_ck, track_cov, intr, cfg)
     kind = levels[0].xi.device.type
     if kind == "cpu":
-        return fuse_frame_plain(*args)
+        out = fuse_frame_plain(*args)
+        if go is None:
+            return out
+        run = go != 0
+        olds = (levels[0].xi, kf_var, kf_mask, kf_hits, torch.zeros_like(out[4]))
+        return tuple(torch.where(run, a, b) for a, b in zip(out, olds))
     if kind != "cuda":
         raise ValueError(f"no fusion kernel for device {levels[0].xi.device}")
-    return _fuse_frame_cuda(*args)
+    return _fuse_frame_cuda(*args, go=go)
 
 
 fuse_frame.launches = 0

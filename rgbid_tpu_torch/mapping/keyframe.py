@@ -30,14 +30,35 @@ class DeviceKeyframe(NamedTuple):
     The template levels carry the CONFIRMED mask (hits >= confirm_hits);
     ``mask_full`` is every pixel with a depth estimate, including
     provisional claims, and is what fusion refines. ``fused_count`` is a
-    host integer: it advances deterministically (every kept frame), so the
-    fusion cadence and rebuild schedule cost no device read."""
+    device int32 scalar: the fusion cadence and the rebuild schedule are
+    device predicates on it, as in the JAX package."""
 
     levels: Tuple[KeyframeLevel, ...]
     var: torch.Tensor  # (H, W) level-0 inverse-depth variance
-    fused_count: int
+    fused_count: torch.Tensor  # () int32 kept frames since the keyframe was founded
     hits: torch.Tensor  # (H, W) observation-support counts
     mask_full: torch.Tensor  # (H, W) full estimate mask
+
+    def tensors(self) -> list:
+        """Every tensor of the state, in a fixed order."""
+        out = [t for lvl in self.levels for t in lvl]
+        return out + [self.var, self.fused_count, self.hits, self.mask_full]
+
+    @classmethod
+    def from_tensors(cls, ts, n_levels: int) -> "DeviceKeyframe":
+        levels = tuple(KeyframeLevel(*ts[4 * l:4 * l + 4]) for l in range(n_levels))
+        return cls(levels, *ts[4 * n_levels:])
+
+
+def select_keyframe(cond: torch.Tensor, a: DeviceKeyframe, b: DeviceKeyframe) -> DeviceKeyframe:
+    """``a`` where the device bool ``cond`` holds, else ``b``, tensor by
+    tensor: the predicated choice of the next keyframe state."""
+    out = [torch.where(cond, x, y) for x, y in zip(a.tensors(), b.tensors())]
+    return DeviceKeyframe.from_tensors(out, len(a.levels))
+
+
+def _select_level(cond, a: KeyframeLevel, b: KeyframeLevel) -> KeyframeLevel:
+    return KeyframeLevel(*(torch.where(cond, x, y) for x, y in zip(a, b)))
 
 
 def create_device_keyframe(
@@ -58,7 +79,7 @@ def create_device_keyframe(
     return DeviceKeyframe(
         levels=levels,
         var=var0,
-        fused_count=0,
+        fused_count=torch.zeros((), dtype=torch.int32, device=mask0.device),
         hits=float(cfg.confirm_hits) * mask0,
         mask_full=mask0,
     )
@@ -98,27 +119,50 @@ def rebuild_after_fusion(
     The template is gated to confirmed pixels (hits >= confirm_hits).
     Level 0 is refreshed every ``fine_every`` fused
     frames (its xi/mask always); the coarse xi pyramid and templates every
-    ``coarse_every`` fused frames. The schedule is a host branch on the
-    host-side ``fused_count``."""
+    ``coarse_every`` fused frames. The schedule is a device predicate on
+    ``fused_count``: both the rebuilt and the kept levels are made, and
+    selected."""
     count = kf.fused_count + 1
     tmask = mask0 * (hits >= confirm_hits).to(torch.float32)
     old0 = kf.levels[0]
-    if fine_every <= 1 or count % fine_every == 0:
-        new0 = _rebuild_level0(old0, xi0, tmask, intr, jac_dtype, jacobian)
-    else:
-        new0 = KeyframeLevel(old0.intensity, xi0, tmask, old0.jac)
+    new0 = _rebuild_level0(old0, xi0, tmask, intr, jac_dtype, jacobian)
+    if fine_every > 1:
+        new0 = _select_level(count % fine_every == 0, new0,
+                             KeyframeLevel(old0.intensity, xi0, tmask, old0.jac))
     n_levels = len(kf.levels)
-    if n_levels == 1:
-        coarse: Tuple[KeyframeLevel, ...] = ()
-    elif coarse_every <= 1 or count % coarse_every == 0:
+    coarse: Tuple[KeyframeLevel, ...] = ()
+    if n_levels > 1:
         xi_pyr, mask_pyr = image.build_pyramid(xi0, tmask, n_levels)
         int_pyr = [l.intensity for l in kf.levels]
         coarse = template_levels(int_pyr, xi_pyr, mask_pyr, intr, jac_dtype, jacobian)[1:]
-    else:
-        coarse = tuple(kf.levels[1:])
+        if coarse_every > 1:
+            now = count % coarse_every == 0
+            coarse = tuple(_select_level(now, a, b) for a, b in zip(coarse, kf.levels[1:]))
     return DeviceKeyframe(
         levels=(new0,) + coarse, var=var0, fused_count=count, hits=hits, mask_full=mask0
     )
+
+
+def retire_planes(state: DeviceKeyframe, reloc_level: int, cloud_stride: int):
+    """What a finalize reads of a keyframe state, packed on the device (no
+    read): xi, mask and variance of level 0, strided by ``cloud_stride``,
+    then intensity, xi and mask at the reloc level. Returns (the flat
+    float32 tensor, the six planes' shapes)."""
+    lvl0 = state.levels[0]
+    li = state.levels[min(reloc_level, len(state.levels) - 1)]
+    s = max(cloud_stride, 1)
+    planes = [p[::s, ::s] for p in (lvl0.xi, lvl0.mask, state.var)]
+    planes += [li.intensity, li.xi, li.mask]
+    flat = torch.cat([p.reshape(-1) for p in planes])
+    return flat, tuple(tuple(p.shape) for p in planes)
+
+
+def retire_shapes(state: DeviceKeyframe, reloc_level: int, cloud_stride: int) -> tuple:
+    """The six planes' shapes in ``retire_planes``'s packing."""
+    h, w = state.levels[0].xi.shape
+    s = max(cloud_stride, 1)
+    li = tuple(state.levels[min(reloc_level, len(state.levels) - 1)].xi.shape)
+    return (((h + s - 1) // s, (w + s - 1) // s),) * 3 + (li,) * 3
 
 
 @dataclass

@@ -18,7 +18,7 @@ import torch
 
 from ..core.camera import Intrinsics
 from ..tracking.step import gray_from_rgb
-from .keyframe import DeviceKeyframe, Keyframe, extract_cloud
+from .keyframe import DeviceKeyframe, Keyframe, extract_cloud, retire_planes
 
 
 @dataclass
@@ -34,6 +34,9 @@ class OdometryEdge:
     episode: bool = False
 
 
+CLOUD_STRIDE = 2  # the finalize's level-0 stride (KeyframeManager's default)
+
+
 class KeyframeManager:
     """Tracks host keyframe records; finalizes retired keyframes.
 
@@ -43,7 +46,7 @@ class KeyframeManager:
     def __init__(
         self,
         intr: Intrinsics,
-        cloud_stride: int = 2,
+        cloud_stride: int = CLOUD_STRIDE,
         cloud_max_sigma: float = 0.05,
         reloc_level: int = 2,
         on_finalize: Optional[Callable[[Keyframe], None]] = None,
@@ -56,8 +59,15 @@ class KeyframeManager:
         self.keyframes: List[Keyframe] = []
         self.edges: List[OdometryEdge] = []
         self.host_reads = 0
+        # The six planes' shapes in a packed slot (``retire_planes``): set
+        # by ``set_shapes`` or by the first finalize of a keyframe state.
+        self._shapes = None
         # finalize runs on the caller's thread and on the back end's.
         self._count_lock = threading.Lock()
+
+    def set_shapes(self, shapes) -> None:
+        """The shapes of the packed planes ``finalize`` will be given."""
+        self._shapes = shapes
 
     @property
     def active(self) -> Keyframe:
@@ -73,24 +83,29 @@ class KeyframeManager:
                           episode: bool = False) -> None:
         self.edges.append(OdometryEdge(from_id, to_id, T_rel.copy(), info.copy(), episode))
 
-    def finalize(self, kf: Keyframe, device_state: DeviceKeyframe) -> Keyframe:
+    def finalize(self, kf: Keyframe, source) -> Keyframe:
         """Read six fused planes back in one packed read: xi, mask and
         variance of level 0, strided on the device by ``cloud_stride`` (the
         cloud is all they feed), and intensity, xi and mask at the reloc
-        level. Extract the keyframe's cloud and fill ``kf.reloc_planes``."""
-        lvl0 = device_state.levels[0]
-        li = device_state.levels[min(self.reloc_level, len(device_state.levels) - 1)]
-        s = max(self.cloud_stride, 1)
-        planes = [p[::s, ::s] for p in (lvl0.xi, lvl0.mask, device_state.var)]
-        planes += [li.intensity, li.xi, li.mask]
+        level. ``source`` is a keyframe state, or those planes already
+        packed by ``retire_planes`` with this manager's reloc level and
+        stride (a slot of the system's retire ring). Extract the keyframe's
+        cloud and fill ``kf.reloc_planes``."""
+        if isinstance(source, DeviceKeyframe):
+            flat, self._shapes = retire_planes(source, self.reloc_level, self.cloud_stride)
+        else:
+            flat = source
         with self._count_lock:
             self.host_reads += 1
-        packed = torch.cat([p.reshape(-1) for p in planes]).cpu().numpy()
+        # A copy: on the CPU .numpy() would alias the ring slot.
+        packed = flat.cpu().numpy().copy()
         out, o = [], 0
-        for p in planes:
-            out.append(packed[o : o + p.numel()].reshape(tuple(p.shape)))
-            o += p.numel()
+        for shape in self._shapes:
+            n = int(np.prod(shape))
+            out.append(packed[o : o + n].reshape(shape))
+            o += n
         xi0, mask0, var0, li_int, li_xi, li_mask = out
+        s = max(self.cloud_stride, 1)
         kf.cloud = extract_cloud(
             xi0, mask0 > 0.5, var0, kf.rgb[::s, ::s], self.intr,
             max_sigma=self.cloud_max_sigma, grid_step=s,

@@ -26,8 +26,9 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG / "csrc" / f for f in ("esm_normal_eq.cu", "esm_stratified.cu", "fusion.cu",
-                                             "ic_normal_eq.cu", "irls_solve.cu"))
+SOURCES = tuple(_PKG / "csrc" / f for f in ("consensus_vote.cu", "esm_normal_eq.cu",
+                                             "esm_stratified.cu", "fusion.cu", "ic_normal_eq.cu",
+                                             "irls_solve.cu"))
 HEADERS = tuple(_PKG / "csrc" / f for f in ("esm_pixel.cuh", "fusion_pixel.cuh",
                                             "irls_common.cuh", "irls_solve.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "rgbid_tpu_torch"
@@ -100,6 +101,23 @@ class IcParams(ctypes.Structure):
     ]
 
 
+class VoteParams(ctypes.Structure):
+    """By-value parameters of ``consensus_vote_launch``
+    (csrc/consensus_vote.cu)."""
+
+    _fields_ = [
+        ("k", ctypes.c_int),
+        ("tol", ctypes.c_float),
+        ("min_frac", ctypes.c_float),
+        ("err_ratio", ctypes.c_float),
+        ("err_floor", ctypes.c_float),
+        ("trigger_frac", ctypes.c_float),
+        ("max_frac", ctypes.c_float),
+        ("persist", ctypes.c_int),
+        ("attack_probe", ctypes.c_int),
+    ]
+
+
 MAX_COARSE = 7  # fusion::kMaxCoarse in csrc/fusion_pixel.cuh
 
 
@@ -145,18 +163,21 @@ class Library:
         lib = ctypes.CDLL(str(path))
         P = ctypes.c_void_p
         I = ctypes.c_int
-        lib.esm_irls_launch.argtypes = [EsmParams, I, I, I] + [P] * 16
+        lib.consensus_vote_launch.argtypes = [VoteParams] + [P] * 8
+        lib.consensus_vote_launch.restype = I
+        lib.esm_irls_launch.argtypes = [EsmParams, I, I, I] + [P] * 18
         lib.esm_irls_launch.restype = I
         lib.esm_stratified_launch.argtypes = [EsmParams, StrataParams, I, I, I] + [P] * 15
         lib.esm_stratified_launch.restype = I
-        lib.fusion_launch.argtypes = [FusionParams, I] + [P] * 16
+        lib.fusion_launch.argtypes = [FusionParams, I] + [P] * 17
         lib.fusion_launch.restype = I
         lib.ic_sigma_launch.argtypes = [IcParams, I] + [P] * 15
         lib.ic_sigma_launch.restype = I
         lib.ic_irls_launch.argtypes = [IcParams, I, I, I] + [P] * 19
         lib.ic_irls_launch.restype = I
-        lib.irls_solve_launch.argtypes = [ctypes.c_float, ctypes.c_float] + [P] * 6
+        lib.irls_solve_launch.argtypes = [ctypes.c_float, ctypes.c_float] + [P] * 8
         lib.irls_solve_launch.restype = I
+        self.consensus_vote_launch = lib.consensus_vote_launch
         self.esm_irls_launch = lib.esm_irls_launch
         self.esm_stratified_launch = lib.esm_stratified_launch
         self.fusion_launch = lib.fusion_launch

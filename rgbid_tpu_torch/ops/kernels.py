@@ -43,10 +43,19 @@ Early exit (``TrackingConfig.early_exit_tol`` / ``conv_skip_tol``): the
 IRLS steps take the previous iteration's ``IrlsStep`` (``prev``) and
 ``tol``. When ``tol > 0`` and ``step_norm(prev.delta) <= tol`` the
 iteration is skipped and the step equals ``prev``: on the card the launch
-returns at entry after copying ``prev``'s output, on the CPU the wrapper
-returns ``prev``. The host enqueues every launch of the budget and reads
-nothing. Steps given a level ``slot`` are counted per slot: launched on the
-host, run (not skipped) on the device (``iteration_counts``).
+returns at entry after copying ``prev``'s output, on the CPU the plain
+version selects ``prev``'s output over the one it computed. The host
+enqueues every launch of the budget and reads nothing.
+
+Predicate (``go``, ``hold``): the ESM steps and evaluations and the solve
+take a device int32 word; when it is 0 the step is ``hold`` (a step whose
+output the launch copies), and nothing is evaluated on the card. The
+consensus's masked reruns and rescue pyramid (tracking/tracker.py) are
+enqueued on every frame and run only when their vote wrote 1 there; on the
+CPU the plain version computes the step and selects. Steps given a level
+``slot`` are counted per slot: launched on the host, run (neither skipped
+nor held) on the device (``iteration_counts``); ``EVAL_SLOT`` counts the
+rescue's level-0 evidence evaluations.
 ``esm_residuals_and_normal_eq.launches``, ``ic_normal_eq.launches``,
 ``ic_sigma_stats.launches``, ``esm_stratified.launches`` and
 ``irls_solve_step.launches`` count kernel launches, whichever wrapper made
@@ -97,6 +106,7 @@ _SUMS = 32  # irls::kNormalSums
 _SIGMA_SUMS = 3
 _OUT = 48 + 16 + 6  # irls::kOut: result, T', delta
 MAX_SLOTS = 8  # irls::kMaxSlots: level slots of the iteration counts
+EVAL_SLOT = MAX_SLOTS - 1  # the slot of the rescue's evidence evaluations
 _BLOCKS_PER_SM = 3  # irls::kMinBlocksPerSm: the kernels' grid per SM at most
 _STRATA_CLUSTERS = 16  # a stratified launch's clusters at most
 
@@ -108,8 +118,9 @@ class IrlsStep(NamedTuple):
     T: torch.Tensor  # (4, 4) orthonormalize(T . exp(-delta))
     result: IrlsResult
     delta: torch.Tensor  # (6,)
-    # On the card: the launch's irls::kOut floats, which the views above
-    # share; the next iteration's early-exit test reads its delta.
+    # The step's irls::kOut floats (result | T' | delta), which the views
+    # above share: the next iteration's early exit reads its delta, and a
+    # held launch copies it.
     out: Optional[torch.Tensor] = None
 
 
@@ -180,15 +191,17 @@ def _irls_step(out: torch.Tensor) -> IrlsStep:
                     out)
 
 
-def _plain_step(T, res: IrlsResult, damping: float) -> IrlsStep:
+def _plain_out(T, res: IrlsResult, damping: float) -> torch.Tensor:
+    """The plain version of a fused launch's output: the evaluation, then
+    ``ic_update``, in the irls::kOut layout."""
     T_out, delta = ic_update(T, res.H, res.b, damping, res.n_valid)
-    return IrlsStep(T_out, res, delta)
+    return torch.cat([pack_result(res), T_out.reshape(16), delta.reshape(6)])
 
 
 # Iteration counts per level slot: launched (host, both devices) and run on
-# the CPU (the card keeps its own in the workspace).
+# the CPU (a CPU tensor; the card keeps its own in the workspace).
 _LAUNCHED = np.zeros((MAX_SLOTS,), np.int64)
-_CPU_RUNS = np.zeros((MAX_SLOTS,), np.int64)
+_CPU_RUNS = torch.zeros((MAX_SLOTS,), dtype=torch.int64)
 
 
 def _count_slot(slot: int) -> None:
@@ -198,24 +211,51 @@ def _count_slot(slot: int) -> None:
         _LAUNCHED[slot] += 1
 
 
-def _cpu_skips(prev: Optional[IrlsStep], tol: float) -> bool:
+def _cpu_skips(prev: IrlsStep, tol: float) -> torch.Tensor:
     """The plain version's early-exit test, the kernels' float order and
-    float32 tolerance: prev's step norm is not above ``tol``."""
-    if prev is None or tol <= 0.0:
-        return False
-    return not float(step_norm(prev.delta)) > np.float32(tol)
+    float32 tolerance: prev's step norm is not above ``tol`` (a bool
+    tensor, read by nobody on the host)."""
+    return ~(step_norm(prev.delta) > np.float32(tol))
 
 
-def _exit_args(prev: Optional[IrlsStep], tol: float, slot: int, ws: "Workspace"):
-    """(prev pointer, runs pointer) of a launch: ``prev``'s output when the
-    exit is on (``tol > 0``), the level's count slot when given."""
-    prev_ptr = None
+def _cpu_step(out: torch.Tensor, slot: int, prev: Optional[IrlsStep], tol: float,
+              go: Optional[torch.Tensor], hold: Optional[IrlsStep]) -> IrlsStep:
+    """A plain step's output ``out`` under the early exit and the predicate:
+    ``prev``'s output where the exit skips, ``hold``'s where ``go`` is 0;
+    counted like a launch, with no host read."""
+    _count_slot(slot)
+    ran = None
     if prev is not None and tol > 0.0:
-        if prev.out is None or prev.out.device != ws.runs.device:
+        skip = _cpu_skips(prev, tol)
+        out = torch.where(skip, prev.out, out)
+        ran = ~skip
+    if go is not None:
+        run = go != 0
+        out = torch.where(run, out, hold.out)
+        ran = run if ran is None else ran & run
+    if slot >= 0:
+        _CPU_RUNS[slot] += 1 if ran is None else ran.to(torch.int64)
+    return _irls_step(out)
+
+
+def _exit_args(prev: Optional[IrlsStep], tol: float, slot: int, ws: "Workspace", go=None,
+               hold: Optional[IrlsStep] = None):
+    """(prev, runs, go, hold) pointers of a launch: ``prev``'s output when
+    the exit is on (``tol > 0``), the level's count slot when given, the
+    predicate word and the step it holds when given."""
+    dev = ws.runs.device
+    prev_ptr = go_ptr = hold_ptr = None
+    if prev is not None and tol > 0.0:
+        if prev.out is None or prev.out.device != dev:
             raise ValueError("prev must be the previous launch's IrlsStep on the same card")
         prev_ptr = prev.out.data_ptr()
+    if go is not None:
+        _build.require(go, "go", dev, (), dtypes=(torch.int32,))
+        if hold is None or hold.out is None or hold.out.device != dev:
+            raise ValueError("a predicated step needs the IrlsStep it holds, on the same card")
+        go_ptr, hold_ptr = go.data_ptr(), hold.out.data_ptr()
     runs_ptr = ws.runs[slot].data_ptr() if slot >= 0 else None
-    return prev_ptr, runs_ptr
+    return prev_ptr, runs_ptr, go_ptr, hold_ptr
 
 
 def iteration_counts(device) -> tuple:
@@ -227,7 +267,7 @@ def iteration_counts(device) -> tuple:
     if dev.type == "cuda":
         runs = workspace(dev).runs.cpu().numpy().astype(np.int64)
     else:
-        runs = _CPU_RUNS.copy()
+        runs = _CPU_RUNS.numpy().copy()
     return _LAUNCHED.copy(), runs
 
 
@@ -237,7 +277,7 @@ def reset_iteration_counts(device) -> None:
     if dev.type == "cuda":
         workspace(dev).runs.zero_()
     else:
-        _CPU_RUNS[:] = 0
+        _CPU_RUNS.zero_()
 
 
 _PLANE_DTYPES = (torch.float32, torch.bfloat16)
@@ -310,14 +350,14 @@ def _esm_check(T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, sigma2_int, s
 def _esm_cuda(
     T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr: Intrinsics, nu,
     sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate, gate_cap, damping,
-    prev=None, tol=0.0, slot=-1,
+    prev=None, tol=0.0, slot=-1, go=None, hold=None,
 ) -> IrlsStep:
     dev = T.device
     types = _esm_check(T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, sigma2_int, sigma2_xi)
     Px, Py, Pz = kf_points
     lib = _build.library()
     ws = workspace(dev)
-    prev_ptr, runs_ptr = _exit_args(prev, tol, slot, ws)
+    prev_ptr, runs_ptr, go_ptr, hold_ptr = _exit_args(prev, tol, slot, ws, go, hold)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
     p = _esm_params(kf_int.numel(), cur_stack, intr, nu, use_geometric, gate_sigmas,
                     occlusion_gate, gate_cap, damping, tol)
@@ -325,7 +365,7 @@ def _esm_cuda(
         p, cur_stack.shape[0], types, ws.max_blocks, T.data_ptr(), sigma2_int.data_ptr(),
         sigma2_xi.data_ptr(), kf_int.data_ptr(), Px.data_ptr(), Py.data_ptr(), Pz.data_ptr(),
         kf_mask.data_ptr(), kf_grads.data_ptr(), cur_stack.data_ptr(), ws.partials.data_ptr(),
-        ws.counter.data_ptr(), out.data_ptr(), prev_ptr, runs_ptr,
+        ws.counter.data_ptr(), out.data_ptr(), prev_ptr, runs_ptr, go_ptr, hold_ptr,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "esm_irls_launch")
@@ -355,23 +395,21 @@ def esm_irls_step(
     prev: Optional[IrlsStep] = None,
     tol: float = 0.0,
     slot: int = -1,
+    go: Optional[torch.Tensor] = None,
+    hold: Optional[IrlsStep] = None,
 ) -> IrlsStep:
     """One ESM IRLS iteration: the evaluation of
     ``esm_residuals_and_normal_eq`` at ``T``, then ``ic_update`` with
-    ``damping``; skipped (the step is ``prev``) under the early exit, see
-    the module docstring; counted in ``slot`` when it is >= 0. CPU runs the
-    plain versions; CUDA one kernel launch that reads nothing back to the
-    host."""
+    ``damping``; skipped (the step is ``prev``) under the early exit, and
+    ``hold`` when the predicate word ``go`` is 0, see the module docstring;
+    counted in ``slot`` when it is >= 0. CPU runs the plain versions; CUDA
+    one kernel launch that reads nothing back to the host."""
     args = (T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu,
             sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate, gate_cap)
     if _device_kind(T, "ESM") == "cpu":
-        _count_slot(slot)
-        if _cpu_skips(prev, tol):
-            return prev
-        if slot >= 0:
-            _CPU_RUNS[slot] += 1
-        return _plain_step(T, esm_residuals_and_normal_eq_plain(*args), damping)
-    return _esm_cuda(*args, damping, prev, tol, slot)
+        out = _plain_out(T, esm_residuals_and_normal_eq_plain(*args), damping)
+        return _cpu_step(out, slot, prev, tol, go, hold)
+    return _esm_cuda(*args, damping, prev, tol, slot, go, hold)
 
 
 def esm_residuals_and_normal_eq(
@@ -389,8 +427,14 @@ def esm_residuals_and_normal_eq(
     gate_sigmas: float = 3.0,
     occlusion_gate: bool = False,
     gate_cap: float = 0.0,
+    *,
+    go: Optional[torch.Tensor] = None,
+    hold: Optional[IrlsStep] = None,
+    slot: int = -1,
 ) -> IrlsResult:
-    """One ESM IRLS evaluation (see ops/gauss_newton.py for the contract).
+    """One ESM IRLS evaluation (see ops/gauss_newton.py for the contract);
+    ``hold``'s result when the predicate word ``go`` is 0, counted in
+    ``slot`` when it is >= 0, as ``esm_irls_step``.
 
     The device of ``T`` decides: CPU runs the plain version, CUDA the
     kernel (the launch of ``esm_irls_step``; its pose update is dropped).
@@ -402,8 +446,12 @@ def esm_residuals_and_normal_eq(
     args = (T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu,
             sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate, gate_cap)
     if _device_kind(T, "ESM") == "cpu":
-        return esm_residuals_and_normal_eq_plain(*args)
-    return _esm_cuda(*args, 0.0).result
+        res = esm_residuals_and_normal_eq_plain(*args)
+        if go is None and slot < 0:
+            return res
+        out = torch.cat([pack_result(res), T.reshape(16), torch.zeros_like(res.b)])
+        return _cpu_step(out, slot, None, 0.0, go, hold).result
+    return _esm_cuda(*args, 0.0, slot=slot, go=go, hold=hold).result
 
 
 esm_residuals_and_normal_eq.launches = 0
@@ -545,7 +593,7 @@ def _ic_normal_cuda(T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_m
     _build.require(jac12, "jac12", dev, (12,) + tuple(kf_int.shape))
     n = kf_int.numel()
     ws = workspace(dev)
-    prev_ptr, runs_ptr = _exit_args(prev, tol, slot, ws)
+    prev_ptr, runs_ptr, _, _ = _exit_args(prev, tol, slot, ws)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
     Px, Py, Pz = kf_points
     status = _build.library().ic_irls_launch(
@@ -691,12 +739,8 @@ def ic_irls_step(
     args = (T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask, intr, nu,
             sigma2_int, sigma2_xi, sigma_iters, use_geometric, gate_sigmas, sigma_mode)
     if _device_kind(T, "IC") == "cpu":
-        _count_slot(slot)
-        if _cpu_skips(prev, tol):
-            return prev
-        if slot >= 0:
-            _CPU_RUNS[slot] += 1
-        return _plain_step(T, residuals_and_normal_eq_plain(*args), damping)
+        out = _plain_out(T, residuals_and_normal_eq_plain(*args), damping)
+        return _cpu_step(out, slot, prev, tol, None, None)
     return _ic_chain_cuda(*args, damping, prev, tol, slot)
 
 
@@ -743,19 +787,24 @@ def esm_result(
     *,
     prev: Optional[IrlsStep] = None,
     tol: float = 0.0,
+    go: Optional[torch.Tensor] = None,
+    hold: Optional[IrlsStep] = None,
 ) -> torch.Tensor:
     """``esm_residuals_and_normal_eq`` as the (48,) result vector: on the card
     the result part of the fused launch's output (no copy), on the CPU the
     plain evaluation packed. Under the early exit (``prev``'s step norm
-    <= ``tol``) it is ``prev``'s result: the launch copies ``prev``, the
-    CPU skips the evaluation."""
+    <= ``tol``) it is ``prev``'s result, and under a predicate word ``go``
+    of 0 ``hold``'s: the launch copies it, the CPU selects it."""
     args = (T, kf_int, kf_points, kf_mask, kf_grads, cur_stack, intr, nu,
             sigma2_int, sigma2_xi, use_geometric, gate_sigmas, occlusion_gate, gate_cap)
     if _device_kind(T, "ESM") == "cpu":
-        if _cpu_skips(prev, tol):
-            return pack_result(prev.result)
-        return pack_result(esm_residuals_and_normal_eq_plain(*args))
-    return _esm_cuda(*args, 0.0, prev, tol).out[:RESULT]
+        res = pack_result(esm_residuals_and_normal_eq_plain(*args))
+        if prev is not None and tol > 0.0:
+            res = torch.where(_cpu_skips(prev, tol), prev.out[:RESULT], res)
+        if go is not None:
+            res = torch.where(go != 0, res, hold.out[:RESULT])
+        return res
+    return _esm_cuda(*args, 0.0, prev, tol, go=go, hold=hold).out[:RESULT]
 
 
 def allreduce_irls(res: torch.Tensor, reduce) -> torch.Tensor:
@@ -782,28 +831,27 @@ def irls_solve_step(
     prev: Optional[IrlsStep] = None,
     tol: float = 0.0,
     slot: int = -1,
+    go: Optional[torch.Tensor] = None,
+    hold: Optional[IrlsStep] = None,
 ) -> IrlsStep:
     """``ic_update`` on a (48,) result vector (``allreduce_irls``'s): the
     solve, the updated pose and the applied step, as an IrlsStep in the
-    fused launches' layout; skipped under the early exit and counted in
-    ``slot`` as ``esm_irls_step``. CPU runs ``ic_update``; CUDA one launch
-    of one block that reads nothing back to the host."""
+    fused launches' layout; skipped under the early exit, held under a
+    predicate word of 0 and counted in ``slot`` as ``esm_irls_step``. CPU
+    runs ``ic_update``; CUDA one launch of one block that reads nothing back
+    to the host."""
     if _device_kind(T, "IRLS solve") == "cpu":
-        _count_slot(slot)
-        if _cpu_skips(prev, tol):
-            return prev
-        if slot >= 0:
-            _CPU_RUNS[slot] += 1
-        return _plain_step(T, unpack_result(result), damping)
+        out = _plain_out(T, unpack_result(result), damping)
+        return _cpu_step(out, slot, prev, tol, go, hold)
     dev = T.device
     _build.require(T, "T", dev, (4, 4))
     _build.require(result, "result", dev, (RESULT,))
     ws = workspace(dev)
-    prev_ptr, runs_ptr = _exit_args(prev, tol, slot, ws)
+    prev_ptr, runs_ptr, go_ptr, hold_ptr = _exit_args(prev, tol, slot, ws, go, hold)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
     status = _build.library().irls_solve_launch(
         damping, tol, result.data_ptr(), T.data_ptr(), out.data_ptr(), prev_ptr, runs_ptr,
-        torch.cuda.current_stream(dev).cuda_stream,
+        go_ptr, hold_ptr, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "irls_solve_launch")
     irls_solve_step.launches += 1

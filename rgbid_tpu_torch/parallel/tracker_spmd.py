@@ -99,6 +99,7 @@ class ShardedTracker:
         without it the tracker would waive the consensus persistence gates,
         a single-shot semantic that a streaming caller must not get."""
         if cons_prev is None:
-            cons_prev = np.zeros((self.cfg.consensus_bins,), np.float32)
+            cons_prev = torch.zeros((self.cfg.consensus_bins,), dtype=torch.float32,
+                                    device=T_init.device)
         return track(self.band(kf), cur, T_init, self.intrs, self.cfg, self.jac_dtype,
                      cons_prev, reduce=self._reduce, row_offsets=self.row_offsets)

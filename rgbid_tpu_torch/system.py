@@ -1,11 +1,22 @@
 """SlamSystem: the public API (feed RGB-D frames -> poses + keyframe map).
 
 Counterpart of ``rgbid_tpu/system.py:32-586``: the per-frame step (track
-with the motion consensus + fuse/switch) on an explicit torch device, the
-keyframe lifecycle and the odometry edges on the host, and a back-end
-thread (loop closure + pose graph) that consumes retired keyframes,
-finalizes them and publishes corrected poses, which the front end applies
-before each frame. Both threads launch on the default stream. The back
+with the motion consensus + fuse/switch, one CUDA graph replay per tracked
+frame on a card) on an explicit torch device, the keyframe lifecycle and
+the odometry edges on the host, and a back-end thread (loop closure + pose
+graph) that consumes retired keyframes, finalizes them and publishes
+corrected poses, which the front end applies at the start of each flight.
+Both threads launch on the default stream.
+
+Flights, as in the JAX package: ``_dispatch`` enqueues a frame's step and
+reads nothing (the step needs no host input but its upload), ``_drain``
+reads a flight's stacked result vectors back in one read and ``_handle``
+does each frame's host bookkeeping in order. ``process_frame`` is a flight
+of one; ``feed`` dispatches up to ``flight_depth`` (default
+``config.pipeline_depth``) frames before it drains. The state a finalize
+reads of each in-flight frame's input keyframe is kept in a ring of
+``flight_depth`` slots (the graph overwrites the state itself), copied in
+after each dispatch. The back
 end's ORB features are host numpy (``backend/orb.py``): once per keyframe
 on the thread, once per relocalization attempt here. With ``viz.enabled``
 a third thread (``utils/live_view.py``) renders snapshots that the front
@@ -25,8 +36,8 @@ from .backend.loop_closure import BackendThread, loop_edge
 from .core.camera import Intrinsics
 from .core.config import SlamConfig, TrackingConfig
 from .mapping import export as _export
-from .mapping.keyframe import DeviceKeyframe
-from .mapping.manager import KeyframeManager
+from .mapping.keyframe import DeviceKeyframe, retire_shapes
+from .mapping.manager import CLOUD_STRIDE, KeyframeManager
 from .reference_cpu import odometry, se3_np
 from .tracking.step import (MotionState, ProcessFrame, StepResult, check_packed_shape,
                             gray_from_rgb, pack_frame)
@@ -40,8 +51,20 @@ def check_supported(cfg: SlamConfig) -> None:
 
     ``tracking.kernel``, ``fusion.kernel`` and ``tracking.stacked_gather``
     are accepted and ignored: the tensor's device picks the kernel or its
-    plain version, and the CUDA kernels gather per thread."""
+    plain version, and the CUDA kernels gather per thread.
+    ``pipeline_depth`` and ``feed(flight_depth=...)`` set the flight depth,
+    as in the JAX package."""
     check_tracking_supported(cfg.tracking)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``a`` and ``b`` name one device ("cuda" is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    return (a.index if a.index is not None else torch.cuda.current_device()) == (
+        b.index if b.index is not None else torch.cuda.current_device())
 
 
 def _resolve_device(device) -> torch.device:
@@ -83,7 +106,10 @@ class SlamSystem:
                 }
             )
         self.config = cfg
-        self._step = ProcessFrame(intr, cfg, self.device)
+        self._step = ProcessFrame(intr, cfg, self.device,
+                                  retire=(cfg.backend.reloc_level, CLOUD_STRIDE))
+        # The retire ring: one slot a frame of the flight in flight.
+        self._ring: Optional[torch.Tensor] = None
         self.backend: Optional[BackendThread] = None
         # The live viewer (the reference's GUI thread), fed host data only.
         self.viewer: Optional[LiveViewer] = None
@@ -94,8 +120,9 @@ class SlamSystem:
 
     @property
     def host_reads(self) -> int:
-        """Device-to-host reads so far: the per-frame step, the keyframe
-        finalizes (on either thread) and the back end's scorer."""
+        """Device-to-host reads so far: one per flight (its result vectors),
+        the keyframe finalizes (on either thread) and the back end's
+        scorer."""
         reads = self._step.host_reads + self.manager.host_reads
         if self.backend is not None:
             reads += self.backend.loop_closer.scorer.host_reads
@@ -105,7 +132,8 @@ class SlamSystem:
     def tracker_counts(self) -> dict:
         """What the tracker ran beyond its plain pyramids so far: the IRLS
         iterations of the consensus's masked reruns and the rescue
-        pyramids."""
+        pyramids, as the frames' result vectors report them (exact once the
+        frames are drained)."""
         return {"rerun_iters": self._step.rerun_iters, "rescues": self._step.rescues}
 
     @property
@@ -128,7 +156,7 @@ class SlamSystem:
         A shape of another codec raises ``decode_frame``'s ValueError."""
         check_packed_shape(tuple(packed.shape), self.config)
         if isinstance(packed, torch.Tensor):
-            if packed.device != self.device or packed.dtype != torch.uint8:
+            if not _same_device(packed.device, self.device) or packed.dtype != torch.uint8:
                 raise ValueError(f"packed must be a uint8 tensor on {self.device}, got "
                                  f"{packed.dtype} on {packed.device}")
             return packed
@@ -141,9 +169,10 @@ class SlamSystem:
                       packed=None) -> np.ndarray:
         """Track one frame; returns the world camera pose T_wc (4x4).
 
-        ``packed`` optionally supplies the frame's upload prepared ahead of
-        time (``pack_frame(rgb_u8, depth_u16, config)``, numpy or already on
-        the device); it must use this system's depth codec, and is checked
+        A flight of one: dispatch, one read, handle. ``packed`` optionally
+        supplies the frame's upload prepared ahead of time
+        (``pack_frame(rgb_u8, depth_u16, config)``, numpy or already on the
+        device); it must use this system's depth codec, and is checked
         before any state changes."""
         t0 = time.perf_counter()
         if packed is None:
@@ -155,22 +184,63 @@ class SlamSystem:
             T_wc = np.eye(4)
             self._record(timestamp, T_wc, None)
             return T_wc
-
         # Live pose-graph publication: apply pending optimized keyframe
         # poses before tracking this frame.
         self._apply_pose_updates()
-        prev_state = self._kf_state
-        res_vec, self._kf_state, self._motion = self._step(packed, prev_state, self._motion)
-        res = StepResult.unpack(res_vec, self.config.tracking.levels)
-        T_wc = self._handle(rgb_u8, depth_u16, timestamp, packed, prev_state, res)
-        self.stats[-1]["ms"] = round((time.perf_counter() - t0) * 1e3, 2)
-        return T_wc
+        return self._drain([self._dispatch(rgb_u8, depth_u16, timestamp, packed, 0)], t0)[0]
+
+    def _ring_slot(self, slot: int) -> torch.Tensor:
+        """Slot ``slot`` of the retire ring, which grows to hold it."""
+        retired = self._step.retired
+        ring = self._ring
+        if ring is None or ring.shape[0] <= slot or ring.shape[1] != retired.numel():
+            n = max(slot + 1, self.config.pipeline_depth, 0 if ring is None else ring.shape[0])
+            ring = self._ring = torch.empty((n, retired.numel()), dtype=retired.dtype,
+                                            device=retired.device)
+        return ring[slot]
+
+    def _dispatch(self, rgb_u8, depth_u16, timestamp, packed, slot: int) -> dict:
+        """Enqueue one frame's step; no host read. What a finalize reads of
+        the frame's input keyframe goes into ring slot ``slot``: if this
+        frame's result later shows a switch, the retiring keyframe is
+        finalized from there."""
+        res_vec, self._kf_state, self._motion = self._step(packed, self._kf_state, self._motion)
+        retired = self._ring_slot(slot)
+        retired.copy_(self._step.retired)
+        return {"rgb": rgb_u8, "depth": depth_u16, "t": timestamp, "packed": packed,
+                "retired": retired, "res_vec": res_vec}
+
+    def _drain(self, pending: List[dict], t0: float) -> List[np.ndarray]:
+        """Read one flight's result vectors back in one read, then handle
+        its frames in order. A frame that relocalizes resets the state: the
+        rest of the flight, computed against the old state, is discarded
+        and replayed frame by frame against the new one. Every frame's
+        ``ms`` is the flight's wall time from ``t0`` over its frames."""
+        levels = self.config.tracking.levels
+        stacked = self._step.read(torch.stack([rec["res_vec"] for rec in pending]))
+        poses = []
+        for i, rec in enumerate(pending):
+            T_wc, relocalized = self._handle(rec, StepResult.unpack(stacked[i], levels))
+            poses.append(T_wc)
+            if relocalized and i + 1 < len(pending):
+                for j, rec2 in enumerate(pending[i + 1:], i + 1):
+                    self._apply_pose_updates()
+                    rec3 = self._dispatch(rec2["rgb"], rec2["depth"], rec2["t"], rec2["packed"], j)
+                    res3 = StepResult.unpack(self._step.read(rec3["res_vec"]), levels)
+                    poses.append(self._handle(rec3, res3)[0])
+                break
+        ms = round((time.perf_counter() - t0) * 1e3 / len(poses), 2)
+        for rec_stat in self.stats[-len(poses):]:
+            rec_stat["ms"] = ms
+        return poses
 
     def _found_keyframe(self, packed, timestamp, T_wc, rgb_u8, depth_u16):
         """This frame founds a fresh keyframe at ``T_wc``: new device state,
         motion model at identity, no episode pending."""
         self._kf_state = self._step.init_keyframe(packed)
         self._motion = MotionState.initial(self.device, self.config.tracking.consensus_bins)
+        self.manager.set_shapes(retire_shapes(self._kf_state, self.manager.reloc_level,
+                                              self.manager.cloud_stride))
         self._episode_since_switch = False
         return self._new_keyframe(timestamp, T_wc, rgb_u8, depth_u16)
 
@@ -182,15 +252,18 @@ class SlamSystem:
             kf.depth = np.ascontiguousarray(depth_u16)
         return kf
 
-    def _handle(self, rgb_u8, depth_u16, timestamp, packed, prev_state: DeviceKeyframe,
-                res: StepResult) -> np.ndarray:
-        """Host bookkeeping for one frame. ``res.T`` is the effective pose
-        vs the keyframe that was active during the frame (coast-and-hold
-        already applied on lost frames)."""
+    def _handle(self, rec: dict, res: StepResult):
+        """Host bookkeeping for one frame of a drained flight; returns
+        (T_wc, relocalized). The device already ran the lost / switch / fuse
+        branch and the motion model; ``res.T`` is the effective pose vs the
+        keyframe that was active during the frame (coast-and-hold already
+        applied on lost frames)."""
+        rgb_u8, depth_u16, timestamp = rec["rgb"], rec["depth"], rec["t"]
         lost = bool(res.lost > 0.5)
         switch = bool(res.switch > 0.5)
         T_eff = se3_np.orthonormalize(res.T.astype(np.float64))
         T_wc = self.T_wk @ se3_np.inv(T_eff)
+        relocalized = False
         # Consensus activity anywhere in the inter-keyframe interval (this
         # frame included, which may be the switch frame) marks the next
         # odometry edge episode-contaminated: persistent flags, a rescue or
@@ -209,20 +282,21 @@ class SlamSystem:
                 self.backend is not None
                 and self._lost_count >= self.config.backend.reloc_after_lost
             ):
-                T_reloc = self._try_relocalize(rgb_u8, depth_u16, timestamp, packed)
+                T_reloc = self._try_relocalize(rgb_u8, depth_u16, timestamp, rec["packed"])
                 if T_reloc is not None:
                     T_wc = T_reloc
                     self._lost_count = 0
                     self._relocalized = True
+                    relocalized = True
         else:
             self._lost_count = 0
             if switch:
                 self._on_keyframe_switch(rgb_u8, depth_u16, timestamp, T_eff, T_wc, res,
-                                         prev_state)
+                                         rec["retired"])
         self._record(timestamp, T_wc, res)
         if self.viewer is not None and self._frame_count % max(self.config.viz.every_n, 1) == 0:
             self._publish_viz(rgb_u8, depth_u16, lost)
-        return T_wc
+        return T_wc, relocalized
 
     def _publish_viz(self, rgb_u8, depth_u16, lost: bool) -> None:
         """Hand the live viewer a snapshot of host data (lossy, cheap: lists
@@ -247,14 +321,15 @@ class SlamSystem:
         })
 
     def _on_keyframe_switch(self, rgb_u8, depth_u16, timestamp, T_ck, T_wc, res: StepResult,
-                            prev_state: DeviceKeyframe) -> None:
+                            retired: torch.Tensor) -> None:
         old = self.manager.active
-        # The retiring keyframe's fused planes are this step's input state.
-        # With a back end its thread finalizes them (one packed read, the
-        # cloud, then ORB and BoW), off the front end's path; without one,
-        # finalize runs here.
+        # The retiring keyframe's fused planes are this step's input state,
+        # packed in the frame's ring slot. With a back end its thread
+        # finalizes them (one packed read, the cloud, then ORB and BoW), off
+        # the front end's path, from a copy: a later flight reuses the slot;
+        # without one, finalize runs here.
         if self.backend is None:
-            self.manager.finalize(old, prev_state)
+            self.manager.finalize(old, retired)
         new = self._new_keyframe(timestamp, T_wc, rgb_u8, depth_u16)
         # Odometry edge old->new: T_{old<-new} = inv(T_ck). An edge whose
         # interval saw consensus activity carries the mover's drag; soften
@@ -268,7 +343,7 @@ class SlamSystem:
         self.manager.add_odometry_edge(old.kf_id, new.kf_id, se3_np.inv(T_ck), info,
                                        episode=episode)
         if self.backend is not None:
-            self.backend.submit(old, prev_state)
+            self.backend.submit(old, retired.clone())
 
     def _try_relocalize(self, rgb_u8, depth_u16, timestamp, packed):
         """Global relocalization of a lost frame against the BoW database.
@@ -340,19 +415,39 @@ class SlamSystem:
 
     def feed(self, frames, flight_depth: Optional[int] = None) -> List[np.ndarray]:
         """Process an iterable of frames (objects with .rgb/.depth/.timestamp
-        or (rgb, depth, timestamp) tuples); returns per-frame world poses.
+        or (rgb, depth, timestamp) tuples) in flights; returns per-frame
+        world poses.
 
-        Flight depth is 1 here: each frame reads its result back before the
-        next one starts, so ``flight_depth`` and ``pipeline_depth`` are
-        accepted and have no effect."""
-        del flight_depth
-        poses = []
+        Up to ``flight_depth`` (default ``config.pipeline_depth``) frames are
+        dispatched without a host read (the step's inputs are all on the
+        device), then one read brings the flight's results back and the
+        host does each frame's bookkeeping in order (``_drain``). Pose-graph
+        updates from the back end are applied at the start of a flight
+        only. The results equal those of a ``process_frame`` loop whenever
+        no update lands mid-run."""
+        depth_k = max(int(flight_depth or self.config.pipeline_depth), 1)
+        poses: List[np.ndarray] = []
+        pending: List[dict] = []
+        t0 = 0.0
         for f in frames:
             if hasattr(f, "rgb"):
                 rgb, depth, t = f.rgb, f.depth, f.timestamp
             else:
                 rgb, depth, t = f
-            poses.append(self.process_frame(rgb, depth, t))
+            if not pending:
+                t0 = time.perf_counter()
+            packed = self._upload(pack_frame(rgb, depth, self.config))
+            if self._kf_state is None:
+                poses.append(self.process_frame(rgb, depth, t, packed=packed))
+                continue
+            if not pending:
+                self._apply_pose_updates()
+            pending.append(self._dispatch(rgb, depth, t, packed, len(pending)))
+            if len(pending) >= depth_k:
+                poses.extend(self._drain(pending, t0))
+                pending = []
+        if pending:
+            poses.extend(self._drain(pending, t0))
         return poses
 
     def reset(self) -> None:
@@ -377,7 +472,7 @@ class SlamSystem:
     def finish(self) -> None:
         """Finalize the active keyframe and drain the back end."""
         if self._kf_state is not None and self.manager.active.cloud is None:
-            self.manager.finalize(self.manager.active, self._kf_state)
+            self.manager.finalize(self.manager.active, self._kf_state)  # the state after the last drain
         if self.backend is not None:
             if self.manager.keyframes:
                 self.backend.submit(self.manager.active)
@@ -391,7 +486,7 @@ class SlamSystem:
         rebase the keyframes and the recorded trajectory (each frame moves
         with its keyframe). The motion model is relative (T_ck and delta
         are keyframe- and camera-frame quantities), so it needs no
-        correction. Called before every frame and at finish."""
+        correction. Called at the start of every flight and at finish."""
         if self.backend is None or not self.backend.has_updates():
             return
         updates = self.backend.take_updates()

@@ -1,22 +1,31 @@
 """The per-frame program: decode, preprocess, track, decide, fuse or found.
 
 Counterpart of ``rgbid_tpu/tracking/step.py:42-327, 330-571, 585-647``,
-the three upload codecs ("u16", "u12", "u16h") included.
-The JAX package keeps the keep/switch/lost choice and the fusion cadence
-on the device (``lax.switch``, ``lax.cond``) so that a whole flight of
-frames runs without a host read. Here they are Python branches: after
-tracking, the frame reads its packed result (lost and switch flags
-included) back once, then runs exactly one branch. The fusion cadence
-needs no read, because ``DeviceKeyframe.fused_count`` is a host integer.
-A fused frame reads ``n_fused`` back at its end. In ESM mode the motion
-consensus adds one read per vote (two a frame) and one on a frame whose
-rescue runs (tracking/tracker.py). ``ProcessFrame.host_reads`` counts them
-all.
+the three upload codecs ("u16", "u12", "u16h") included. As in the JAX
+package, the step reads nothing back to the host: the keep / switch / lost
+choice, the fusion cadence, the consensus's reruns and rescue
+(tracking/tracker.py) and the motion model are device predicates and
+selects, so that frame i + 1 needs nothing from the host but its upload.
+The step returns its packed ``StepResult`` as a device vector; the caller
+(``SlamSystem``) reads a whole flight of them back at once.
+
+On the card a tracked frame is one replay of a CUDA graph, the counterpart
+of the JAX package's ``jax.jit``: the first tracked frame runs the step
+once eagerly (the kernels build, the libraries' handles initialize, the
+constants reach the card; its results and counts are dropped), then
+captures it on a side stream with ``capture_error_mode="thread_local"``
+(the back end's thread may launch meanwhile). Every tracked frame is then
+one replay on the current stream (the default stream: one stream, one
+workspace, ops/kernels.py). The graph's static buffers are the upload, the
+keyframe and motion state (which the graph overwrites with the next state
+at its end), the result vector and the retiring planes (what a finalize
+reads of the input state). On the CPU the same step runs eagerly. There is
+no eager path on the card: a failed capture raises.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +33,8 @@ import torch
 from ..core import se3
 from ..core.camera import Intrinsics, level_intrinsics
 from ..mapping.fusion import fuse_frame
-from ..mapping.keyframe import DeviceKeyframe, create_device_keyframe, rebuild_after_fusion
+from ..mapping.keyframe import (DeviceKeyframe, create_device_keyframe, rebuild_after_fusion,
+                                retire_planes, select_keyframe)
 from ..ops import image
 from .frames import preprocess_planes
 from .tracker import TrackResult, plane_dtypes, track
@@ -32,34 +42,33 @@ from .tracker import TrackResult, plane_dtypes, track
 
 class MotionState(NamedTuple):
     """Inter-frame tracking state: the constant-velocity motion model, the
-    lost-frame coast-and-hold policy and the consensus streaks.
+    lost-frame coast-and-hold policy and the consensus streaks, all on the
+    device.
 
     T_ck: (4, 4) pose of the last frame vs the active keyframe.
     delta: (4, 4) last inter-frame camera motion (identity while lost).
     lost_count: () f32 consecutive lost frames so far.
     cons_excluded: (consensus_bins,) f32 per-stratum consecutive-flag
-    counts, the consensus persistence memory (zeroed on a lost frame). It
-    lives on the HOST as a numpy array: the consensus decisions that read
-    and update it run on the host (tracking/tracker.py).
+    counts, the consensus persistence memory (zeroed on a lost frame).
     """
 
     T_ck: torch.Tensor
     delta: torch.Tensor
     lost_count: torch.Tensor
-    cons_excluded: np.ndarray = None
+    cons_excluded: torch.Tensor = None
 
     @classmethod
     def initial(cls, device, cons_bins: int = 6) -> "MotionState":
         eye = torch.eye(4, dtype=torch.float32, device=device)
         return cls(T_ck=eye, delta=eye, lost_count=torch.zeros((), dtype=torch.float32, device=device),
-                   cons_excluded=np.zeros((cons_bins,), np.float32))
+                   cons_excluded=torch.zeros((cons_bins,), dtype=torch.float32, device=device))
 
 
 class StepResult(NamedTuple):
-    """Small per-frame result; travels as one packed f32 vector in the JAX
-    package's layout. The consensus fields that come out of host decisions
-    (consensus_frac, cons_flags, cons_flags_persist, rescue) are written
-    into the host vector after the read."""
+    """Small per-frame result; travels as one packed f32 vector: the JAX
+    package's layout, then the consensus's work counts (the rerun
+    iterations and whether the rescue pyramid ran), which the caller adds
+    to ``tracker_counts`` when it reads the vector."""
 
     T: np.ndarray  # (4, 4) current <- (entry) keyframe
     cov: np.ndarray  # (6, 6) pose covariance
@@ -79,11 +88,13 @@ class StepResult(NamedTuple):
     cons_flags: float
     cons_flags_persist: float
     rescue: float
+    rerun_iters: float
+    rescue_ran: float
 
     @staticmethod
     def shapes(levels: int):
         L = levels
-        return [(4, 4), (6, 6), (), (), (), (L,), (L,), (L,), (), (), (), (), (), (), (), (), (), ()]
+        return [(4, 4), (6, 6), (), (), (), (L,), (L,), (L,)] + [()] * 12
 
     @classmethod
     def pack(cls, fields) -> torch.Tensor:
@@ -99,17 +110,6 @@ class StepResult(NamedTuple):
             out.append(v[o : o + n].reshape(shape) if shape else v[o])
             o += n
         return cls(*out)
-
-
-# Offsets in the packed vector, after T (16 floats) and cov (36); the
-# fields after the three per-level vectors depend on the level count.
-_SWITCH, _LOST, _N_FUSED = 52, 53, 54
-
-
-def _tail_offsets(levels: int):
-    """(consensus_frac, cons_flags, cons_flags_persist, rescue) offsets."""
-    o = 55 + 3 * levels + 3  # overlap, sigma2_int, sigma2_xi
-    return o, o + 4, o + 5, o + 6
 
 
 def gray_from_rgb(rgb_u8: np.ndarray) -> np.ndarray:
@@ -278,24 +278,77 @@ def _solve_spd(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.where(info == 0, X, torch.full_like(X, float("nan")))
 
 
+class _Graph(NamedTuple):
+    """One captured step: the graph, its static buffers, and the launches a
+    replay makes per counter."""
+
+    graph: "torch.cuda.CUDAGraph"
+    packed: torch.Tensor
+    kf: DeviceKeyframe
+    motion: MotionState
+    res: torch.Tensor
+    retired: Optional[torch.Tensor]
+    counts: dict
+    slots: np.ndarray
+    nodes: int
+
+
+def _counters():
+    """(object, attribute) of every launch count a step adds to."""
+    from ..mapping import fusion
+    from ..ops import kernels
+    from . import consensus
+
+    return ((kernels.esm_residuals_and_normal_eq, "launches"), (kernels.esm_stratified, "launches"),
+            (kernels.ic_normal_eq, "launches"), (kernels.ic_normal_eq, "sigma_phases"),
+            (kernels.ic_sigma_stats, "launches"), (kernels.irls_solve_step, "launches"),
+            (fusion.fuse_frame, "launches"), (consensus.consensus_vote, "launches"))
+
+
+def _read_counts():
+    from ..ops import kernels
+
+    return {c: getattr(*c) for c in _counters()}, kernels._LAUNCHED.copy()
+
+
+def _write_counts(counts, slots) -> None:
+    from ..ops import kernels
+
+    for (obj, attr), v in counts.items():
+        setattr(obj, attr, v)
+    kernels._LAUNCHED[:] = slots
+
+
 class ProcessFrame:
     """The per-frame step bound to (intrinsics, config, device).
 
-    ``host_reads`` counts device-to-host reads made by ``__call__``;
-    ``rerun_iters`` and ``rescues`` count the IRLS iterations of the
-    consensus's masked reruns and the rescue pyramids run (each 40
-    iterations at the default iters plus two level-0 evaluations).
+    ``__call__(packed, kf, motion)`` returns (the packed StepResult as a
+    device vector, the next keyframe state, the next motion state) and
+    reads nothing back. On the card these are the graph's buffers: the next
+    call overwrites them, so a caller copies what must outlive it (the
+    system keeps the vector; ``retired`` is the packed planes a finalize
+    of the call's input keyframe reads, when ``retire`` = (reloc level,
+    cloud stride) is given). ``host_reads`` counts the reads of result
+    vectors (``read``), ``rerun_iters`` and ``rescues`` what those vectors
+    report: the IRLS iterations of the consensus's masked reruns and the
+    rescue pyramids run (each 40 iterations at the default iters plus two
+    level-0 evaluations). ``replays`` and ``captures`` count the graph's.
 
     In IC mode the consensus is off, as in the JAX package."""
 
-    def __init__(self, intr: Intrinsics, cfg, device):
+    def __init__(self, intr: Intrinsics, cfg, device, retire=None):
         self.intr = intr
         self.cfg = cfg
         self.device = torch.device(device)
         self.intrs = tuple(level_intrinsics(intr, l) for l in range(cfg.tracking.levels))
+        self.retire = retire
+        self.retired: Optional[torch.Tensor] = None
         self.host_reads = 0
         self.rerun_iters = 0
         self.rescues = 0
+        self.replays = 0
+        self.captures = 0
+        self._graph: Optional[_Graph] = None
 
     def init_keyframe(self, packed_u8: torch.Tensor) -> DeviceKeyframe:
         return self._found(frame_pyramid(packed_u8, self.cfg))
@@ -305,15 +358,94 @@ class ProcessFrame:
         tcfg = self.cfg.tracking
         return create_device_keyframe(cur, self.intr, self.cfg.fusion, tcfg.jac_dtype, tcfg.jacobian)
 
-    def _read(self, t: torch.Tensor) -> np.ndarray:
+    def read(self, vecs: torch.Tensor) -> np.ndarray:
+        """One host read of (stacked) result vectors; their consensus work
+        is added to ``rerun_iters`` and ``rescues``."""
         self.host_reads += 1
-        return t.cpu().numpy()
+        out = vecs.cpu().numpy()
+        rows = out.reshape(-1, out.shape[-1])
+        self.rerun_iters += int(round(float(rows[:, -2].sum())))
+        self.rescues += int(round(float(rows[:, -1].sum())))
+        return out
+
+    @property
+    def graph_nodes(self) -> int:
+        """The captured graph's node count (0 before the capture)."""
+        return 0 if self._graph is None else self._graph.nodes
 
     def __call__(
         self, packed_u8: torch.Tensor, kf: DeviceKeyframe, motion: MotionState
-    ) -> Tuple[np.ndarray, DeviceKeyframe, MotionState]:
-        """Returns (packed StepResult as a host vector, new keyframe state,
-        new motion state)."""
+    ) -> Tuple[torch.Tensor, DeviceKeyframe, MotionState]:
+        if self.device.type != "cuda":
+            res, kf2, motion2 = self.step(packed_u8, kf, motion)
+            if self.retire is not None:
+                self.retired = retire_planes(kf, *self.retire)[0]
+            return res, kf2, motion2
+        g = self._graph
+        if g is None or g.packed.shape != packed_u8.shape:
+            g = self._graph = self._capture(packed_u8, kf, motion)
+        if packed_u8 is not g.packed:
+            g.packed.copy_(packed_u8)
+        if kf is not g.kf:
+            for dst, src in zip(g.kf.tensors(), kf.tensors()):
+                dst.copy_(src)
+        if motion is not g.motion:
+            for dst, src in zip(g.motion, motion):
+                dst.copy_(src)
+        g.graph.replay()
+        self.replays += 1
+        for (obj, attr), v in g.counts.items():
+            setattr(obj, attr, getattr(obj, attr) + v)
+        from ..ops import kernels
+
+        kernels._LAUNCHED[:] += g.slots
+        self.retired = g.retired
+        return g.res.clone(), g.kf, g.motion
+
+    def _capture(self, packed_u8, kf: DeviceKeyframe, motion: MotionState) -> _Graph:
+        """Warm the step up eagerly, then capture it (see the module
+        docstring). Neither adds to any launch or iteration count."""
+        from ..ops import kernels
+
+        dev = self.device
+        counts0, slots0 = _read_counts()
+        runs0 = kernels.workspace(dev).runs.clone()
+        self.step(packed_u8, kf, motion)
+        if self.retire is not None:
+            retire_planes(kf, *self.retire)
+        _write_counts(counts0, slots0)
+        kernels.workspace(dev).runs.copy_(runs0)
+        s_packed = packed_u8.clone()
+        s_kf = DeviceKeyframe.from_tensors([t.clone() for t in kf.tensors()], len(kf.levels))
+        s_motion = MotionState(*(t.clone() for t in motion))
+        # keep_graph: the captured graph stays readable for its node count;
+        # it is instantiated right after.
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        side = torch.cuda.Stream(dev)
+        retired = None
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            res, kf2, motion2 = self.step(s_packed, s_kf, s_motion)
+            if self.retire is not None:
+                retired = retire_planes(s_kf, *self.retire)[0]
+            # The next state into the input buffers, after every read of them.
+            for dst, src in zip(s_kf.tensors(), kf2.tensors()):
+                dst.copy_(src)
+            for dst, src in zip(s_motion, motion2):
+                dst.copy_(src)
+        counts1, slots1 = _read_counts()
+        _write_counts(counts0, slots0)
+        nodes = _graph_nodes(graph)
+        graph.instantiate()
+        self.captures += 1
+        deltas = {c: counts1[c] - counts0[c] for c in counts0}
+        return _Graph(graph, s_packed, s_kf, s_motion, res, retired, deltas, slots1 - slots0,
+                      nodes)
+
+    def step(
+        self, packed_u8: torch.Tensor, kf: DeviceKeyframe, motion: MotionState
+    ) -> Tuple[torch.Tensor, DeviceKeyframe, MotionState]:
+        """The step itself, eagerly: (packed StepResult as a device vector,
+        new keyframe state, new motion state), with no host read."""
         cfg = self.cfg
         tcfg, kcfg, fcfg = cfg.tracking, cfg.keyframe, cfg.fusion
         dev = self.device
@@ -322,9 +454,7 @@ class ProcessFrame:
         # Constant-velocity prediction.
         T_init = se3.orthonormalize(se3.inv(motion.delta) @ motion.T_ck)
         tr: TrackResult = track(kf.levels, cur, T_init, self.intrs, tcfg, tcfg.jac_dtype,
-                                cons_prev=motion.cons_excluded, read=self._read)
-        self.rerun_iters += tr.rerun_iters
-        self.rescues += int(tr.rescue_ran)
+                                cons_prev=motion.cons_excluded)
 
         # Pose covariance: inverse of the final (un-normalized) normal matrix.
         Hd = tr.H * torch.clamp(tr.n_valid[0], min=1.0) + 1e-8 * torch.eye(
@@ -337,15 +467,15 @@ class ProcessFrame:
         D = se3.inv(T_init) @ tr.T
         div_t = torch.linalg.vector_norm(D[:3, 3])
         div_r = se3.rotation_angle(D[:3, :3])
-        # Stress flags (host): strata flagged this frame, and persistently.
-        stress_n = float((tr.cons_excluded > 0.5).sum())
-        stress_p = float((tr.cons_excluded >= float(tcfg.consensus_persist)).sum())
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        guard_fired = zero > 0.0
-        if tcfg.divergence_guard and tcfg.consensus and stress_p > 0.5:
+        # Stress flags: strata flagged this frame, and persistently.
+        stress_n = (tr.cons_excluded > 0.5).to(torch.float32).sum()
+        stress_p = (tr.cons_excluded >= float(tcfg.consensus_persist)).to(torch.float32).sum()
+        guard_fired = torch.zeros((), dtype=torch.bool, device=dev)
+        if tcfg.divergence_guard and tcfg.consensus:
             # "Confidently wrong": divergence from the prior while stress
             # flags persist declares the frame lost.
-            guard_fired = ((div_t > tcfg.div_trans_thresh) | (div_r > tcfg.div_rot_thresh)) & finite
+            guard_fired = (((div_t > tcfg.div_trans_thresh) | (div_r > tcfg.div_rot_thresh))
+                           & (stress_p > 0.5) & finite)
             lost = lost | guard_fired
         t_norm = torch.linalg.vector_norm(tr.T[:3, 3])
         angle = se3.rotation_angle(tr.T[:3, :3])
@@ -356,67 +486,56 @@ class ProcessFrame:
             | (angle > kcfg.max_rotation)
             | (sigma_t > kcfg.max_pose_sigma)
         )
-        if tcfg.rescue_refound and tcfg.consensus and tr.rescue > 0.5:
+        if tcfg.rescue_refound and tcfg.consensus:
             # A rescue that corrected the pose refounds the keyframe.
-            switch = torch.ones_like(switch)
+            switch = switch | (tr.rescue > 0.5)
         switch = switch & ~lost
-        first_lost = motion.lost_count < 0.5
-        T_eff = torch.where(lost, torch.where(first_lost, T_init, motion.T_ck), tr.T)
-        fields = [
-            T_eff, cov, switch, lost, zero, tr.errors, tr.inlier_frac, tr.n_valid,
-            tr.overlap, tr.sigma2_int, tr.sigma2_xi, zero, guard_fired, div_t, div_r,
-            zero, zero, zero,
-        ]
-        # The frame's one mandatory host read: the branch below needs the
-        # lost and switch flags.
-        res = self._read(StepResult.pack(fields))
-        o_frac, o_flags, o_persist, o_rescue = _tail_offsets(tcfg.levels)
-        res[o_frac], res[o_flags], res[o_persist] = tr.consensus_frac, stress_n, stress_p
-        res[o_rescue] = tr.rescue
-        is_lost = bool(res[_LOST] > 0.5)
-        is_switch = bool(res[_SWITCH] > 0.5)
 
-        # Three-way: lost -> no-op; switch -> new keyframe; else fuse.
-        n_fused = None
-        if is_lost:
-            kf2 = kf
-        elif is_switch:
-            kf2 = self._found(cur)
-        elif not fcfg.enabled:
-            kf2 = kf
-        elif fcfg.fuse_every > 1 and kf.fused_count % fcfg.fuse_every != 0:
-            # Off-cycle: the count still advances so the cadence holds.
-            kf2 = kf._replace(fused_count=kf.fused_count + 1)
+        # Three-way, by predicate: lost -> the state as it was; switch -> a
+        # new keyframe from this frame; else fuse (on the cadence) or only
+        # advance the count. Every branch is made and the state selected.
+        found = self._found(cur)
+        if fcfg.enabled:
+            keep = ~lost & ~switch
+            if fcfg.fuse_every > 1:
+                keep_fuse = keep & (kf.fused_count % fcfg.fuse_every == 0)
+            else:
+                keep_fuse = keep
+            fused, n_fused = self._fuse(kf, cur, tr.T, cov, keep_fuse.to(torch.int32))
+            counted = kf._replace(fused_count=kf.fused_count + 1)
+            kf2 = select_keyframe(lost, kf, select_keyframe(
+                switch, found, select_keyframe(keep_fuse, fused, counted)))
         else:
-            kf2, n_fused = self._fuse(kf, cur, tr.T, cov)
-        if n_fused is not None:
-            res[_N_FUSED] = self._read(n_fused)
+            n_fused = torch.zeros((), dtype=torch.float32, device=dev)
+            kf2 = select_keyframe(switch, found, kf)
 
         # Motion model: coast one prediction step on the first lost frame,
         # then hold; reset the velocity and the consensus streaks while
         # lost; re-anchor at identity on a new keyframe.
-        if is_lost:
-            T_ck_new = T_eff
-            delta_new = eye4
-            lost_count = motion.lost_count + 1.0
-            streaks = np.zeros_like(tr.cons_excluded)
-        else:
-            T_ck_new = eye4 if is_switch else tr.T
-            delta_new = se3.orthonormalize(motion.T_ck @ se3.inv(tr.T))
-            lost_count = torch.zeros_like(motion.lost_count)
-            streaks = tr.cons_excluded
-        motion2 = MotionState(T_ck=T_ck_new, delta=delta_new, lost_count=lost_count,
-                              cons_excluded=streaks)
+        first_lost = motion.lost_count < 0.5
+        T_eff = torch.where(lost, torch.where(first_lost, T_init, motion.T_ck), tr.T)
+        motion2 = MotionState(
+            T_ck=torch.where(switch, eye4, T_eff),
+            delta=torch.where(lost, eye4, se3.orthonormalize(motion.T_ck @ se3.inv(tr.T))),
+            lost_count=torch.where(lost, motion.lost_count + 1.0, torch.zeros_like(motion.lost_count)),
+            cons_excluded=torch.where(lost, torch.zeros_like(tr.cons_excluded), tr.cons_excluded),
+        )
+        res = StepResult.pack([
+            T_eff, cov, switch, lost, n_fused, tr.errors, tr.inlier_frac, tr.n_valid,
+            tr.overlap, tr.sigma2_int, tr.sigma2_xi, tr.consensus_frac, guard_fired, div_t, div_r,
+            stress_n, stress_p, tr.rescue, tr.rerun_iters, tr.rescue_ran,
+        ])
         return res, kf2, motion2
 
-    def _fuse(self, kf: DeviceKeyframe, cur, T, cov):
-        """One fusion launch on the card (the pose-noise floor, hole guess,
-        Kalman update, hit counts and mask), then the template rebuild."""
+    def _fuse(self, kf: DeviceKeyframe, cur, T, cov, go):
+        """One fusion launch (the pose-noise floor, hole guess, Kalman
+        update, hit counts and mask; the planes copied through where ``go``
+        is 0), then the template rebuild."""
         cfg = self.cfg
         fcfg, tcfg = cfg.fusion, cfg.tracking
         xi2, var2, mask2, hits2, n_fused = fuse_frame(
             kf.levels, kf.var, kf.mask_full, kf.hits, cur[0].xi, cur[0].mask, T, cov,
-            self.intrs[0], fcfg,
+            self.intrs[0], fcfg, go=go,
         )
         kf2 = rebuild_after_fusion(
             kf, xi2, var2, mask2, hits2, self.intr, tcfg.jac_dtype, tcfg.jacobian,
@@ -424,3 +543,18 @@ class ProcessFrame:
             fine_every=fcfg.fine_rebuild_every,
         )
         return kf2, n_fused
+
+
+def _graph_nodes(graph) -> int:
+    """The node count of a captured graph (kept, not yet instantiated),
+    through the driver's ``cuGraphGetNodes`` on ``raw_cuda_graph``; -1
+    where the driver library cannot be loaded."""
+    import ctypes
+
+    try:
+        drv = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return -1
+    n = ctypes.c_size_t(0)
+    status = drv.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    return int(n.value) if status == 0 else -1

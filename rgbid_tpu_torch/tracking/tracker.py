@@ -29,15 +29,18 @@ template intensity, are stored bfloat16; the vote and the rescue's
 level-0 evidence read the float32 intensity with those points. The stack's
 type comes from the frame (tracking/frames.py; "bf16" and "bf16-stack").
 
-The consensus branches on the host where the JAX package uses
-``lax.cond``. A vote is one ``esm_stratified`` launch and one read of its
-(K, 50) sums and the baseline scale; ``analyze`` / ``decide``
-(tracking/consensus.py), the member vectors and the streak counts are host
-numpy. A rescue reads its two evidence errors and the correction's size
-once; ``div_rescue`` reads the divergence once on a frame whose flagged
-strata could let it fire. Every read goes through ``read``, so a caller can
-count them. Masked template masks are built from per-level stratum-index
-planes by device ops: no host vector is uploaded.
+The consensus reads nothing back to the host: where the JAX package uses
+``lax.cond`` the port predicates on the device. A vote is one
+``esm_stratified`` launch and one ``consensus_vote`` launch
+(tracking/consensus.py): ``analyze``, ``decide`` and the vote's
+bookkeeping write the member vector, the frame's flags and a word that is
+1 when the level's masked rerun must run. The rerun's IRLS launches, and
+the whole rescue pyramid with its two level-0 evidence evaluations, are
+enqueued on every frame and given such a word (``go``): held, a launch
+copies the step it would have replaced (ops/kernels.py). The rescue's
+acceptance, the probe's evidence mask, ``div_rescue`` and the streak
+update are device selects. Masked template masks are gathers of the
+device member vector over per-level stratum-index planes.
 
 Row sharding (``parallel/tracker_spmd.py``, ESM only): ``track`` takes a
 ``reduce`` that sums a tensor over the ranks, and per level the row offset
@@ -49,9 +52,10 @@ across ranks at the five places where the JAX tracker psums
 IRLS iteration (``esm_result``, ``allreduce_irls``, ``irls_solve_step``:
 three steps where the one-process iteration is one launch), the vote's
 (K, 50) sums before they are read, the rescue's level-0 evidence, and
-``kf_count``. Every host branch reads only such summed values, which are
-the same bits on every rank, so all ranks take the same branches. Without
-``reduce`` nothing of this runs: the iteration is the one fused launch.
+``kf_count``. Every predicate is made from such summed values, which are
+the same bits on every rank, so all ranks hold or run the same launches
+(and make the same all-reduces, held or not). Without ``reduce`` nothing
+of this runs: the iteration is the one fused launch.
 """
 
 from __future__ import annotations
@@ -63,9 +67,9 @@ import torch
 
 from ..core import se3
 from ..core.camera import Intrinsics, level_intrinsics
-from ..ops.gauss_newton import round_jac, unpack_stratified
-from ..ops.kernels import (allreduce_irls, esm_irls_step, esm_residuals_and_normal_eq, esm_result,
-                           esm_stratified, ic_irls_step, irls_solve_step)
+from ..ops.gauss_newton import round_jac
+from ..ops.kernels import (EVAL_SLOT, allreduce_irls, esm_irls_step, esm_residuals_and_normal_eq,
+                           esm_result, esm_stratified, ic_irls_step, irls_solve_step)
 from ..ops.warp import backproject_grid
 from . import consensus as cons
 from .frames import FrameLevel, KeyframeLevel
@@ -137,8 +141,8 @@ def _apply_affine_illumination(
 
 
 class TrackResult(NamedTuple):
-    """Per-frame tracking output: small device tensors, and the consensus
-    fields on the host (they come out of host decisions)."""
+    """Per-frame tracking output: small device tensors, the consensus
+    fields included."""
 
     T: torch.Tensor  # (4, 4) current <- keyframe
     H: torch.Tensor  # (6, 6) final-level normal matrix, per valid pixel
@@ -149,20 +153,21 @@ class TrackResult(NamedTuple):
     sigma2_int: torch.Tensor
     sigma2_xi: torch.Tensor
     kf_count: torch.Tensor  # () valid pixels of the APPLIED finest template mask
-    # Pixel fraction masked out by the consensus (the largest over the vote
-    # levels; 0 when nothing acted or the consensus is off).
-    consensus_frac: float = 0.0
-    # (consensus_bins,) f32 numpy: per-stratum consecutive-flag counts after
-    # this frame, for the next frame's persistence gates (MotionState).
-    cons_excluded: Optional[np.ndarray] = None
-    # 1.0 when a rescue re-track was accepted AND corrected the pose by more
-    # than rescue_refound_min_trans / _rot (the keyframe-refound trigger).
-    rescue: float = 0.0
-    # What the frame ran beyond its plain pyramid: IRLS iterations of the
-    # masked same-level reruns, and whether the rescue pyramid (all levels
+    # () Pixel fraction masked out by the consensus (the largest over the
+    # vote levels; 0 when nothing acted or the consensus is off).
+    consensus_frac: Optional[torch.Tensor] = None
+    # (consensus_bins,) f32: per-stratum consecutive-flag counts after this
+    # frame, for the next frame's persistence gates (MotionState).
+    cons_excluded: Optional[torch.Tensor] = None
+    # () 1.0 when a rescue re-track was accepted AND corrected the pose by
+    # more than rescue_refound_min_trans / _rot (the keyframe-refound
+    # trigger).
+    rescue: Optional[torch.Tensor] = None
+    # () What the frame ran beyond its plain pyramid: IRLS iterations of the
+    # masked same-level reruns, and 1.0 when the rescue pyramid (all levels
     # plus two level-0 evidence evaluations) ran.
-    rerun_iters: int = 0
-    rescue_ran: bool = False
+    rerun_iters: Optional[torch.Tensor] = None
+    rescue_ran: Optional[torch.Tensor] = None
 
 
 def template_level(kl: KeyframeLevel, intr_l: Intrinsics, s: int, row_offset: int = 0):
@@ -206,10 +211,6 @@ def _edges_on(dev: torch.device, edges: np.ndarray) -> torch.Tensor:
     return t
 
 
-def _read_host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
-
-
 class _Pyramid:
     """One frame's templates and the IRLS loop over them."""
 
@@ -244,10 +245,13 @@ class _Pyramid:
         iters = self.cfg.iters
         return iters[level] if level < len(iters) else iters[-1]
 
-    def run(self, level, T, s2i, s2x, H, mask):
+    def run(self, level, T, s2i, s2x, H, mask, go=None, hold=None):
         """One level's IRLS loop from (T, sigmas, H) with the given template
-        mask: (T, s2i, s2x, H, err, inlier_frac, n_valid). Every run starts
-        with no previous step, so its first iteration always runs."""
+        mask: (T, s2i, s2x, H, err, inlier_frac, n_valid, last step). Every
+        run starts with no previous step, so its first iteration always
+        runs. With a predicate word ``go`` (ESM) every iteration is held
+        when the word is 0: the loop's first step is then ``hold`` and the
+        run returns ``hold``'s values."""
         cfg = self.cfg
         kl, points = self.tmpl[level]
         kf_int = self.int_loop[level]
@@ -256,20 +260,21 @@ class _Pyramid:
         err = inl = nv = self.zero
         step = None
         for _ in range(self.n_iters(level)):
+            held = None if go is None else (hold if step is None else step)
             if self.reduce is not None:
                 res = esm_result(
                     T, kf_int, points, mask, kl.jac, cl.stack7, intr_l, cfg.student_t_nu, s2i,
                     s2x, cfg.use_geometric, cfg.gate_sigmas, cfg.occlusion_gate, gate_cap,
-                    prev=step, tol=self.tol,
+                    prev=step, tol=self.tol, go=go, hold=held,
                 )
                 step = irls_solve_step(T, allreduce_irls(res, self.reduce), cfg.damping,
-                                       prev=step, tol=self.tol, slot=level)
+                                       prev=step, tol=self.tol, slot=level, go=go, hold=held)
             elif self.esm:
                 step = esm_irls_step(
                     T, kf_int, points, mask, kl.jac, cl.stack7, intr_l,
                     cfg.student_t_nu, s2i, s2x, cfg.use_geometric, cfg.gate_sigmas,
                     cfg.occlusion_gate, gate_cap, damping=cfg.damping, prev=step, tol=self.tol,
-                    slot=level,
+                    slot=level, go=go, hold=held,
                 )
             else:
                 step = ic_irls_step(
@@ -281,10 +286,16 @@ class _Pyramid:
             T, res = step.T, step.result
             s2i, s2x, H = res.sigma2_int, res.sigma2_xi, res.H
             err, inl, nv = res.error, res.inlier_frac, res.n_valid
-        return T, s2i, s2x, H, err, inl, nv
+        return T, s2i, s2x, H, err, inl, nv, step
 
 
 def _tail(pyr: _Pyramid, T, H, s2i, s2x, errors, inliers, nvalids, mask0, **consensus):
+    # Without the consensus its fields are device zeros.
+    zero = pyr.zero
+    consensus = {"consensus_frac": zero, "rescue": zero, "rerun_iters": zero,
+                 "rescue_ran": zero, **consensus}
+    consensus.setdefault("cons_excluded", torch.zeros((pyr.cfg.consensus_bins,),
+                                                      dtype=torch.float32, device=zero.device))
     # Geometric overlap normalized for sensor dropout on both sides; the
     # template count and n_valid share the template stride. Under row
     # sharding the template count is summed over the ranks, the current
@@ -312,7 +323,6 @@ def track(
     cfg,
     jac_dtype: str = "f32",
     cons_prev=None,
-    read=None,
     reduce=None,
     row_offsets=None,
 ) -> TrackResult:
@@ -323,10 +333,10 @@ def track(
     illumination rounds its rescaled planes to.
 
     ``cons_prev`` is the previous frame's per-stratum consecutive-flag
-    counts ((consensus_bins,) host array, what MotionState carries); None
-    waives the consensus persistence gates (single-shot tracking), and the
-    returned counts then start from a zero history. ``read`` copies a device
-    tensor to a host numpy array (default: ``t.cpu().numpy()``).
+    counts ((consensus_bins,) float32, what MotionState carries: a tensor,
+    or a host array that is copied up); None waives the consensus
+    persistence gates (single-shot tracking), and the returned counts then
+    start from a zero history. Nothing is read back to the host.
 
     Row sharding (ESM only; ValueError otherwise): ``reduce`` sums a tensor
     over the ranks and returns the sum, the same bits on every rank;
@@ -335,72 +345,83 @@ def track(
     rows. See the module docstring."""
     pyr = _Pyramid(kf, cur, intrs, cfg, jac_dtype, T_init.device, reduce, row_offsets)
     if cfg.consensus and pyr.esm:
-        return _track_consensus(pyr, T_init, cons_prev, read or _read_host)
+        return _track_consensus(pyr, T_init, cons_prev)
     T, s2i, s2x, H = T_init, pyr.s2i0, pyr.s2x0, pyr.eye6
     errors, inliers, nvalids = [], [], []
     for level in range(cfg.levels - 1, -1, -1):
-        T, s2i, s2x, H, err, inl, nv = pyr.run(level, T, s2i, s2x, H, pyr.tmpl[level][0].mask)
+        T, s2i, s2x, H, err, inl, nv, _ = pyr.run(level, T, s2i, s2x, H,
+                                                   pyr.tmpl[level][0].mask)
         errors.append(err)
         inliers.append(inl)
         nvalids.append(nv)
-    n_bins = cfg.consensus_bins
-    return _tail(pyr, T, H, s2i, s2x, errors, inliers, nvalids, pyr.tmpl[0][0].mask,
-                 cons_excluded=np.zeros((n_bins,), _F32))
+    return _tail(pyr, T, H, s2i, s2x, errors, inliers, nvalids, pyr.tmpl[0][0].mask)
 
 
-def _track_consensus(pyr: _Pyramid, T_init, cons_prev, read) -> TrackResult:
+def _hist_tensor(cons_prev, k: int, dev: torch.device) -> torch.Tensor:
+    """The streak history as a (K,) float32 tensor on ``dev`` (a tensor is
+    taken as it is; a host array is copied up, for single-shot callers)."""
+    if isinstance(cons_prev, torch.Tensor):
+        return cons_prev.to(device=dev, dtype=torch.float32).reshape(k)
+    return torch.from_numpy(np.asarray(cons_prev, _F32).reshape(k).copy()).to(dev)
+
+
+def _shift(x: torch.Tensor, pad: torch.Tensor):
+    """(left neighbour, right neighbour) of every stratum, ``pad`` outside."""
+    return torch.cat([pad, x[:-1]]), torch.cat([x[1:], pad])
+
+
+def _track_consensus(pyr: _Pyramid, T_init, cons_prev) -> TrackResult:
     """The ESM tracker with the depth-stratified motion consensus
-    (``rgbid_tpu/tracking/tracker.py:232-318, 475-948``), its ``lax.cond``
-    branches taken on the host."""
+    (``rgbid_tpu/tracking/tracker.py:232-318, 475-948``), every
+    ``lax.cond`` a device predicate: the masked reruns and the rescue
+    pyramid are always enqueued, their launches run only where the vote's
+    word is 1, and the rescue's acceptance selects on the device."""
     cfg = pyr.cfg
     levels, K = cfg.levels, cfg.consensus_bins
-    persist = cfg.consensus_persist
+    persist = float(cfg.consensus_persist)
+    dev = T_init.device
+    f32 = torch.float32
     edges = cons.stratum_edges(cfg.consensus_xi_min, cfg.consensus_xi_max, K)
+    edges_t = _edges_on(dev, edges)
     idx_planes: dict = {}
 
     def level_mask(level, member, mask=None):
         """``member_mask`` at one level: the template mask (or ``mask``)
-        without the strata whose member is 0."""
+        without the strata whose member is 0, from the level's
+        stratum-index plane (made once per frame)."""
         kl = pyr.tmpl[level][0]
-        mask = kl.mask if mask is None else mask
-        if member.min() >= 0.5:
-            return mask
         if level not in idx_planes:
-            idx_planes[level] = cons.stratum_index(kl.xi, _edges_on(kl.xi.device, edges))
-        return cons.excluded_mask(idx_planes[level], mask, member)
+            idx_planes[level] = cons.stratum_index(kl.xi, edges_t)
+        return cons.masked(idx_planes[level], kl.mask if mask is None else mask, member)
 
-    member = np.ones((K,), _F32)
+    zpad = torch.zeros((1,), dtype=f32, device=dev)
     if cons_prev is not None:
-        cons_hist = np.asarray(cons_prev, _F32).reshape(K)
+        hist = _hist_tensor(cons_prev, K, dev)
+        hist_real = hist
         # Episode mask: strata with a ripe streak start excluded at every
         # level, the coarsest included; a neighbour of one is masked too,
         # but only if it has a live streak of its own.
-        hot = (cons_hist >= _F32(persist)).astype(_F32)
-        zpad = np.zeros((1,), _F32)
-        hot_n = np.maximum(np.concatenate([zpad, hot[:-1]]), np.concatenate([hot[1:], zpad]))
-        hot = np.maximum(hot, hot_n * (cons_hist >= _F32(1.0)).astype(_F32))
-        member = _F32(1.0) - hot
+        hot = (hist >= persist).to(f32)
+        left, right = _shift(hot, zpad)
+        hot = torch.maximum(hot, torch.maximum(left, right) * (hist >= 1.0).to(f32))
+        member = 1.0 - hot
     else:
-        cons_hist = np.full((K,), 100.0, _F32)
-    flags_any = np.zeros((K,), _F32)
-    nk_last = np.ones((K,), _F32)
-    probe_fire = False
-    probe_cand = np.zeros((K,), _F32)
-    excl_any = np.zeros((K,), _F32)
-    rescue_flag = False
-    consensus_frac = _F32(0.0)
-    rerun_iters = 0
+        hist = torch.full((K,), 100.0, dtype=f32, device=dev)
+        hist_real = torch.zeros((K,), dtype=f32, device=dev)
+        member = torch.ones((K,), dtype=f32, device=dev)
+    state = cons.VoteState.initial(member)
+    rerun_iters = pyr.zero
     det_l = min(cfg.consensus_level, levels - 1)
 
     T, s2i, s2x, H = T_init, pyr.s2i0, pyr.s2x0, pyr.eye6
     errors, inliers, nvalids = [], [], []
-    mask0 = None
+    mask0 = last = None
     for level in range(levels - 1, -1, -1):
         kl, points = pyr.tmpl[level]
         cl, intr_l = pyr.cur[level], pyr.intrs[level]
-        mask_l = level_mask(level, member)
+        mask_l = level_mask(level, state[:K])
         pre = (T, s2i, s2x, H)
-        T, s2i, s2x, H, err, inl, nv = pyr.run(level, *pre, mask_l)
+        T, s2i, s2x, H, err, inl, nv, last = pyr.run(level, *pre, mask_l)
         if 1 <= level <= det_l:
             # The vote: fixed init sigmas, occlusion gate on, the FULL
             # template mask (a masked mover stays monitored).
@@ -417,152 +438,123 @@ def _track_consensus(pyr: _Pyramid, T_init, cons_prev, read) -> TrackResult:
             ang = se3.rotation_angle(T[:3, :3])
             bscale = (1.0 + 12.0 * torch.clamp(t_norm - 0.06, min=0.0)
                       + 8.0 * torch.clamp(ang - 0.05, min=0.0))
-            host = read(torch.cat([sums.reshape(-1), bscale.reshape(1)]))
-            Hk, bk, nk, Gk, ek = unpack_stratified(host[:-1].reshape(K, -1))
             # Tolerance in pixels of the calibration rig, scaled by the
             # full-resolution focal length (level-independent).
             tol_l = cfg.consensus_tol * (intr_l.fx * (2.0**level) / cfg.consensus_ref_fx)
-            verdict = cons.analyze(Hk, bk, nk, Gk, ek, tol_l, cfg.consensus_min_frac,
-                                   cfg.consensus_err_ratio, cfg.consensus_err_floor,
-                                   baseline_scale=host[-1])
-            flags_any = np.maximum(flags_any, np.maximum(verdict.excluded, verdict.hostage))
-            nk_last = nk
-            decision = cons.decide(verdict, cons_hist, nk, cfg.consensus_trigger_frac,
-                                   cfg.consensus_max_frac, persist)
-            if cfg.attack_probe:
-                # Attack-probe candidate: a vote exclusion under a clear
-                # majority names a victim; the stratum that can drag the
-                # pose is the highest information-density agreeing
-                # minority voter.
-                tot_k = np.maximum(nk.sum(dtype=_F32), _F32(1.0))
-                voter_k = nk >= _F32(cfg.consensus_min_frac) * tot_k
-                pool = (voter_k & (verdict.excluded < 0.5)
-                        & (nk < _F32(cons.MINORITY_CAP) * tot_k))
-                dens = np.where(pool, verdict.info_share / np.maximum(nk / tot_k, _F32(1e-6)),
-                                _F32(-1.0))
-                fire_l = verdict.excluded.sum() > 0.5 and verdict.majority_ok and pool.any()
-                if fire_l:
-                    probe_cand = np.zeros((K,), _F32)
-                    probe_cand[int(np.argmax(dens))] = 1.0
-                probe_fire = probe_fire or fire_l
-                excl_any = np.maximum(excl_any, verdict.excluded)
-            member2 = member * decision.member
-            consensus_frac = max(consensus_frac, _F32(decision.excluded_frac))
-            rescue_flag = rescue_flag or decision.rescue
-            # Rerun the level from its pre-level state only when a stratum
-            # was NEWLY excluded (an episode-masked mover keeps flagging).
-            if decision.triggered and bool((member2 < member).any()) and not decision.rescue:
-                T, s2i, s2x, H, err, inl, nv = pyr.run(level, *pre, level_mask(level, member2))
-                rerun_iters += pyr.n_iters(level)
-            member = member2
+            state, go, _ = cons.consensus_vote(sums, bscale, hist, state,
+                                               cons.VoteParams.of(cfg, tol_l))
+            # The level's masked rerun from its pre-level state, run only
+            # when a stratum was NEWLY excluded (the vote's word); held, it
+            # leaves the level's result as it is.
+            T, s2i, s2x, H, err, inl, nv, last = pyr.run(
+                level, *pre, level_mask(level, state[:K]), go=go, hold=last)
+            rerun_iters = rerun_iters + go.to(f32) * float(pyr.n_iters(level))
         errors.append(err)
         inliers.append(inl)
         nvalids.append(nv)
         if level == 0:
             mask0 = mask_l
+    st = cons.VoteState.split(state, K)
+    member = st.member
+    consensus_frac = st.consensus_frac[0]
 
     # Streak counts for the next frame: leaky and neighbour-crediting, from
     # the REAL history (zeros when none was given), capped a little above
     # the gate.
-    hist_real = (np.asarray(cons_prev, _F32).reshape(K) if cons_prev is not None
-                 else np.zeros((K,), _F32))
-    flagged = flags_any > 0.5
-    zpad = np.zeros((1,), _F32)
-    fpad = np.zeros((1,), bool)
-    left_h, right_h = np.concatenate([zpad, hist_real[:-1]]), np.concatenate([hist_real[1:], zpad])
-    left_f, right_f = np.concatenate([fpad, flagged[:-1]]), np.concatenate([flagged[1:], fpad])
-    credit = np.maximum(np.where(left_f, _F32(0.0), left_h), np.where(right_f, _F32(0.0), right_h))
-    base = np.maximum(hist_real, credit)
-    streak_cap = _F32(float(persist) + 4.0)
-    cons_excluded = np.where(flagged, np.minimum(base + _F32(1.0), streak_cap),
-                             np.maximum(hist_real - _F32(1.0), _F32(0.0))).astype(_F32)
+    flagged = st.flags_any > 0.5
+    left_h, right_h = _shift(hist_real, zpad)
+    left_f, right_f = _shift(flagged, torch.zeros((1,), dtype=torch.bool, device=dev))
+    credit = torch.maximum(torch.where(left_f, 0.0, left_h), torch.where(right_f, 0.0, right_h))
+    base = torch.maximum(hist_real, credit)
+    streak_cap = persist + 4.0
+    cons_excluded = torch.where(flagged, torch.clamp(base + 1.0, max=streak_cap),
+                                torch.clamp(hist_real - 1.0, min=0.0))
 
+    rescue_flag = st.rescue_flag[0] > 0.5
     rescue_any = rescue_flag
     rescue_member = member
     if cfg.div_rescue:
         # Divergence-triggered rescue: the converged pose diverges hard from
         # the prior on a frame whose flagged strata are a real minority.
-        flagged2 = np.maximum(flagged.astype(_F32), (cons_hist >= _F32(persist)).astype(_F32))
-        frac = (flagged2 * nk_last).sum(dtype=_F32) / np.maximum(nk_last.sum(dtype=_F32),
-                                                                  _F32(1.0))
-        div_fire = False
-        if frac > _F32(0.01) and frac <= _F32(cfg.consensus_max_frac) and not rescue_flag:
-            D = se3.inv(T_init) @ T
-            div = read(torch.stack([torch.linalg.vector_norm(D[:3, 3]),
-                                    se3.rotation_angle(D[:3, :3])]))
-            div_fire = bool(div[0] > _F32(cfg.div_trans_thresh)
-                            or div[1] > _F32(cfg.div_rot_thresh))
-        if div_fire:
-            rescue_member = member * (_F32(1.0) - flagged2)
-            rescue_any = True
-            consensus_frac = max(consensus_frac, frac)
-    rescue_margin = _F32(1.0)
-    probe_go = False
+        D = se3.inv(T_init) @ T
+        div_t = torch.linalg.vector_norm(D[:3, 3])
+        div_r = se3.rotation_angle(D[:3, :3])
+        flagged2 = torch.maximum(flagged.to(f32), (hist >= persist).to(f32))
+        frac = (cons._seqsum(flagged2 * st.nk_last)
+                / torch.clamp(cons._seqsum(st.nk_last), min=1.0))
+        div_fire = (((div_t > cfg.div_trans_thresh) | (div_r > cfg.div_rot_thresh))
+                    & (frac > 0.01) & (frac <= cfg.consensus_max_frac) & ~rescue_flag)
+        rescue_member = torch.where(div_fire, member * (1.0 - flagged2), member)
+        rescue_any = rescue_flag | div_fire
+        consensus_frac = torch.maximum(consensus_frac, torch.where(div_fire, frac, 0.0))
+    rescue_margin = torch.ones((), dtype=f32, device=dev)
+    probe_go = None
     if cfg.attack_probe:
         # The probe is folded into the one rescue pyramid: it fires only when
         # no hostage/divergence rescue does and must beat the main pose by
         # the strict margin.
-        probe_go = probe_fire and not rescue_any
-        if probe_go:
-            rescue_member = member * (_F32(1.0) - probe_cand)
-            rescue_margin = _F32(cfg.probe_margin)
-        rescue_any = rescue_any or probe_go
+        probe_go = (st.probe_fire[0] > 0.5) & ~rescue_any
+        rescue_member = torch.where(probe_go, member * (1.0 - st.probe_cand), rescue_member)
+        rescue_margin = torch.where(probe_go, float(cfg.probe_margin), rescue_margin)
+        rescue_any = rescue_any | probe_go
 
-    rescue_out = 0.0
-    if rescue_any:
-        # Masked re-track from the prior with init sigmas, accepted only on
-        # fixed-sigma level-0 evidence on the retained template.
-        Tr, s2ir, s2xr, Hr = T_init, pyr.s2i0, pyr.s2x0, pyr.eye6
-        errs_r, inls_r, nvs_r = [], [], []
-        mask0_r = None
-        for level in range(levels - 1, -1, -1):
-            mask_r = level_mask(level, rescue_member)
-            Tr, s2ir, s2xr, Hr, e, i, n = pyr.run(level, Tr, s2ir, s2xr, Hr, mask_r)
-            errs_r.append(e)
-            inls_r.append(i)
-            nvs_r.append(n)
-            if level == 0:
-                mask0_r = mask_r
-        evid_mask = mask0_r
-        if probe_go:
-            # The probe's evidence is judged on unaccused pixels only.
-            evid_mask = level_mask(0, _F32(1.0) - np.clip(excl_any, 0.0, 1.0), mask0_r)
-        kl0, pts0 = pyr.tmpl[0]
-        cl0, intr0 = pyr.cur[0], pyr.intrs[0]
+    # The rescue: a masked re-track from the prior with init sigmas,
+    # accepted only on fixed-sigma level-0 evidence on the retained
+    # template. Always enqueued; its launches run only on a rescue frame.
+    go_r = rescue_any.to(torch.int32)
+    Tr, s2ir, s2xr, Hr = T_init, pyr.s2i0, pyr.s2x0, pyr.eye6
+    errs_r, inls_r, nvs_r = [], [], []
+    mask0_r, held = None, last
+    for level in range(levels - 1, -1, -1):
+        mask_r = level_mask(level, rescue_member)
+        Tr, s2ir, s2xr, Hr, e, i, n, held = pyr.run(level, Tr, s2ir, s2xr, Hr, mask_r, go=go_r,
+                                                    hold=held)
+        errs_r.append(e)
+        inls_r.append(i)
+        nvs_r.append(n)
+        if level == 0:
+            mask0_r = mask_r
+    evid_mask = mask0_r
+    if probe_go is not None:
+        # The probe's evidence is judged on unaccused pixels only.
+        evid_mask = torch.where(
+            probe_go, level_mask(0, 1.0 - torch.clamp(st.excl_any, 0.0, 1.0), mask0_r), mask0_r)
+    kl0, pts0 = pyr.tmpl[0]
+    cl0, intr0 = pyr.cur[0], pyr.intrs[0]
 
-        def err0_fixed(Tq):
-            args = (Tq, kl0.intensity, pts0, evid_mask, kl0.jac, cl0.stack7, intr0,
-                    cfg.student_t_nu, pyr.s2i0, pyr.s2x0, cfg.use_geometric, cfg.gate_sigmas,
-                    cfg.occlusion_gate, cfg.occ_gate_cap)
-            if pyr.reduce is not None:
-                return allreduce_irls(esm_result(*args), pyr.reduce)[44]
-            return esm_residuals_and_normal_eq(*args).error
+    def err0_fixed(Tq):
+        args = (Tq, kl0.intensity, pts0, evid_mask, kl0.jac, cl0.stack7, intr0,
+                cfg.student_t_nu, pyr.s2i0, pyr.s2x0, cfg.use_geometric, cfg.gate_sigmas,
+                cfg.occlusion_gate, cfg.occ_gate_cap)
+        if pyr.reduce is not None:
+            return allreduce_irls(esm_result(*args, go=go_r, hold=last), pyr.reduce)[44]
+        return esm_residuals_and_normal_eq(*args, go=go_r, hold=last, slot=EVAL_SLOT).error
 
-        D_r = se3.inv(T) @ Tr
-        ev = read(torch.stack([err0_fixed(Tr), err0_fixed(T),
-                               torch.linalg.vector_norm(D_r[:3, 3]),
-                               se3.rotation_angle(D_r[:3, :3])]))
-        accepted = bool(ev[0] <= rescue_margin * ev[1])
-        if accepted:
-            T, s2i, s2x, H = Tr, s2ir, s2xr, Hr
-            errors, inliers, nvalids, mask0 = errs_r, inls_r, nvs_r, mask0_r
-            # Only a rescue that CORRECTED the pose is evidence of drag
-            # worth refounding over.
-            corrected = (ev[2] > _F32(cfg.rescue_refound_min_trans)
-                         or ev[3] > _F32(cfg.rescue_refound_min_rot))
-            rescue_out = 1.0 if corrected else 0.0
-            if probe_go:
-                # Streak transfer on an accepted probe: the probed stratum
-                # gets the credit, the vote-excluded victims decay, every
-                # uninvolved stratum keeps its normal update.
-                cons_excluded = np.where(
-                    probe_cand > 0.5, np.minimum(hist_real + _F32(1.0), streak_cap),
-                    np.where(excl_any > 0.5, np.maximum(hist_real - _F32(1.0), _F32(0.0)),
-                             cons_excluded)).astype(_F32)
+    accepted = rescue_any & (err0_fixed(Tr) <= rescue_margin * err0_fixed(T))
+    # Only a rescue that CORRECTED the pose is evidence of drag worth
+    # refounding over.
+    D_r = se3.inv(T) @ Tr
+    corrected = ((torch.linalg.vector_norm(D_r[:3, 3]) > cfg.rescue_refound_min_trans)
+                 | (se3.rotation_angle(D_r[:3, :3]) > cfg.rescue_refound_min_rot))
+    rescue_out = (accepted & corrected).to(f32)
+    if probe_go is not None:
+        # Streak transfer on an accepted probe: the probed stratum gets the
+        # credit, the vote-excluded victims decay, every uninvolved stratum
+        # keeps its normal update.
+        transfer = torch.where(
+            st.probe_cand > 0.5, torch.clamp(hist_real + 1.0, max=streak_cap),
+            torch.where(st.excl_any > 0.5, torch.clamp(hist_real - 1.0, min=0.0), cons_excluded))
+        cons_excluded = torch.where(probe_go & accepted, transfer, cons_excluded)
 
-    return _tail(pyr, T, H, s2i, s2x, errors, inliers, nvalids, mask0,
-                 consensus_frac=float(consensus_frac), cons_excluded=cons_excluded,
-                 rescue=rescue_out, rerun_iters=rerun_iters, rescue_ran=rescue_any)
+    def pick(a, b):
+        return torch.where(accepted, a, b)
+
+    return _tail(pyr, pick(Tr, T), pick(Hr, H), pick(s2ir, s2i), pick(s2xr, s2x),
+                 [pick(a, b) for a, b in zip(errs_r, errors)],
+                 [pick(a, b) for a, b in zip(inls_r, inliers)],
+                 [pick(a, b) for a, b in zip(nvs_r, nvalids)], pick(mask0_r, mask0),
+                 consensus_frac=consensus_frac, cons_excluded=cons_excluded, rescue=rescue_out,
+                 rerun_iters=rerun_iters, rescue_ran=rescue_any.to(f32))
 
 
 class Tracker:

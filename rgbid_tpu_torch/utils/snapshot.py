@@ -61,7 +61,7 @@ def kf_state_leaves(state) -> List[np.ndarray]:
     leaves = []
     for level in state.levels:
         leaves += [_numpy(getattr(level, f)) for f in LEVEL_FIELDS]
-    return leaves + [_numpy(state.var), np.asarray(state.fused_count, np.int32),
+    return leaves + [_numpy(state.var), _numpy(state.fused_count).astype(np.int32),
                      _numpy(state.hits), _numpy(state.mask_full)]
 
 
@@ -80,7 +80,8 @@ def kf_state_from_leaves(leaves, device):
     levels = tuple(KeyframeLevel(*(dev(x) for x in leaves[n * l:n * (l + 1)]))
                    for l in range(n_levels))
     var, count, hits, mask_full = leaves[n * n_levels:]
-    return DeviceKeyframe(levels=levels, var=dev(var), fused_count=int(np.asarray(count)),
+    fused = torch.from_numpy(np.asarray(count, np.int32).reshape(())).to(device)
+    return DeviceKeyframe(levels=levels, var=dev(var), fused_count=fused,
                           hits=dev(hits), mask_full=dev(mask_full))
 
 
@@ -119,7 +120,7 @@ def save(system: "SlamSystem", path: str) -> None:
         arrays["delta"] = _numpy(system._motion.delta)
         arrays["lost_count"] = _numpy(system._motion.lost_count)
         if system._motion.cons_excluded is not None:
-            arrays["cons_excluded"] = np.asarray(system._motion.cons_excluded, np.float32)
+            arrays["cons_excluded"] = _numpy(system._motion.cons_excluded)
     arrays["traj_t"] = np.asarray([t for t, _ in system._trajectory])
     arrays["traj_T"] = (np.stack([T for _, T in system._trajectory]) if system._trajectory
                         else np.zeros((0, 4, 4)))
@@ -158,7 +159,7 @@ def restore(path: str, config=None, device="cuda") -> "SlamSystem":
     processed, so that keyframes from before the snapshot stay matchable."""
     from ..core.camera import Intrinsics
     from ..core.config import SlamConfig
-    from ..mapping.keyframe import Keyframe
+    from ..mapping.keyframe import Keyframe, retire_shapes
     from ..mapping.manager import OdometryEdge
     from ..system import SlamSystem
     from ..tracking.step import MotionState
@@ -183,8 +184,8 @@ def restore(path: str, config=None, device="cuda") -> "SlamSystem":
             T_ck=t32(z["T_ck"]),
             delta=t32(z["delta"]),
             lost_count=t32(z["lost_count"]).reshape(()),
-            cons_excluded=(np.array(z["cons_excluded"], np.float32) if "cons_excluded" in z
-                           else np.zeros((bins,), np.float32)),
+            cons_excluded=t32(z["cons_excluded"] if "cons_excluded" in z
+                              else np.zeros((bins,), np.float32)),
         )
     system._trajectory = [(float(t), T) for t, T in zip(z["traj_t"], z["traj_T"])]
     for i in range(meta["n_keyframes"]):
@@ -221,4 +222,6 @@ def restore(path: str, config=None, device="cuda") -> "SlamSystem":
     if "kf_state_n_leaves" in meta:
         leaves = [z[f"kfstate_{i}"] for i in range(meta["kf_state_n_leaves"])]
         system._kf_state = kf_state_from_leaves(leaves, dev)
+        system.manager.set_shapes(retire_shapes(system._kf_state, system.manager.reloc_level,
+                                                system.manager.cloud_stride))
     return system

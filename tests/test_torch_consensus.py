@@ -1,6 +1,7 @@
 """The port's motion consensus against the JAX package.
 
-``rgbid_tpu_torch.tracking.consensus`` (host numpy float32) against
+``rgbid_tpu_torch.tracking.consensus`` (tensor functions, float32 with a
+float64 Jacobi eigensolve) against
 ``rgbid_tpu.tracking.consensus`` on the same per-stratum sums; the plain
 stratified reduction against the JAX package's; the tracker with its
 streak history injected; the whole per-frame step over the walking-mover
@@ -63,107 +64,34 @@ def _cfg(**extra):
 # (1) analyze / decide on per-stratum sums
 
 
-def _eye_stack(scales, nk):
-    return np.stack([s * np.eye(6) for s in scales]).astype(np.float32) * nk[:, None, None]
+# The six synthetic cases of tests/test_consensus.py and the seeded random
+# sums live in chip_smoke.py, which holds the vote kernel to its plain
+# version on them on the card.
+_fixture = chip_smoke.consensus_fixture
+_random_sums = chip_smoke.consensus_random_sums
+CASES = chip_smoke.CONSENSUS_CASES
+RANDOM = chip_smoke.CONSENSUS_RANDOM
 
 
-def _fixture(name):
-    """(Hk, bk, nk, Gk, ek, prev_counts) of tests/test_consensus.py's six
-    synthetic cases, float32."""
-    f32 = np.float32
-    if name == "majority":
-        nk = np.array([2000.0, 1500.0, 1800.0, 1700.0, 2500.0, 50.0], f32)
-        d = np.zeros((K, 6), f32)
-        d[0, 0], d[1, 1], d[2, 0], d[2, 2], d[3, 0], d[3, 1] = 2e-4, 3e-4, -2e-4, 1e-4, 1e-4, -1e-4
-        d[4, 0], d[4, 1] = 0.02, 0.01
-        Hk = _eye_stack([1e4, 1e4, 1e4, 1e4, 1e6, 1e2], nk)
-        bk = np.einsum("kij,kj->ki", Hk, d).astype(f32)
-        return Hk, bk, nk, _eye_stack([1e4] * K, nk), (0.1 * nk).astype(f32), np.full(K, 10.0, f32)
-    if name == "static":
-        rng = np.random.default_rng(0)
-        nk = rng.uniform(500, 3000, K).astype(f32)
-        d = rng.normal(0, 3e-4, (K, 6)).astype(f32)
-        Hk = _eye_stack([1e4] * K, nk)
-        bk = (np.einsum("kij,kj->ki", Hk / nk[:, None, None], d) * nk[:, None]).astype(f32)
-        return Hk, bk, nk, _eye_stack([1e4] * K, nk), (0.1 * nk).astype(f32), np.full(K, 10.0, f32)
-    if name == "error_outlier":
-        nk = np.array([2000.0, 1800.0, 2200.0, 900.0, 0.0, 0.0], f32)
-        n1 = np.maximum(nk, 1)
-        ek = (np.array([0.1, 0.15, 0.12, 4.8, 0.0, 0.0], f32) * n1).astype(f32)
-        return (_eye_stack([1e4] * K, n1), np.zeros((K, 6), f32), nk, _eye_stack([1e4] * K, n1),
-                ek, np.full(K, 10.0, f32))
-    if name == "hostage":
-        nk = np.array([0.0, 4900.0, 3300.0, 1800.0, 0.0, 0.0], f32)
-        ek = (np.array([0.0, 0.07, 0.9, 0.15, 0.0, 0.0], f32) * nk).astype(f32)
-        return (_eye_stack([0.0, 2e3, 8e3, 2e5, 0.0, 0.0], nk), np.zeros((K, 6), f32), nk,
-                _eye_stack([1e4] * K, nk), ek, np.array([0, 0, 0, 5.0, 0, 0], f32))
-    if name == "two_voter":
-        nk = np.array([0.0, 4700.0, 5300.0, 0.0, 0.0, 0.0], f32)
-        d = np.zeros((K, 6), f32)
-        d[1, 0], d[2, 0] = 0.02, -0.02
-        Hk = _eye_stack([1e4] * K, nk)
-        bk = (np.einsum("kij,kj->ki", Hk, d) / np.maximum(nk, 1.0)[:, None] * nk[:, None])
-        return (Hk, bk.astype(f32), nk, _eye_stack([1e4] * K, nk), (0.1 * nk).astype(f32),
-                np.full(K, 10.0, f32))
-    if name == "dominance":
-        nk = np.array([0.0, 4700.0, 3200.0, 2100.0, 0.0, 0.0], f32)
-        return (_eye_stack([0.0, 4e3, 1e4, 3e4, 0.0, 0.0], nk), np.zeros((K, 6), f32), nk,
-                _eye_stack([1e4] * K, nk), (0.1 * nk).astype(f32), np.full(K, 10.0, f32))
-    raise KeyError(name)
-
-
-def _random_sums(seed, even_voters=False, all_agree=False):
-    """Seeded random per-stratum sums: SPD H and G with a wide but bounded
-    eigenvalue spread, corrections of mixed size, errors around the
-    outlier floor. ``even_voters``: four voting strata (an even count, the
-    median's two-middle-values case); ``all_agree``: every stratum is
-    converged (b = 0), so every hypothesis has the same support and the
-    first index must win the argmax."""
-    rng = np.random.default_rng(seed)
-    f32 = np.float32
-    nk = rng.uniform(800, 4000, K).astype(f32)
-    if even_voters:
-        nk[[1, 4]] = rng.uniform(5, 20, 2).astype(f32)
-    Hk, Gk = [], []
-    for _ in range(K):
-        Q, _ = np.linalg.qr(rng.standard_normal((6, 6)))
-        ev = np.exp(rng.uniform(np.log(1e2), np.log(1e5), 6))
-        Hk.append(Q @ np.diag(ev) @ Q.T)
-        Q2, _ = np.linalg.qr(rng.standard_normal((6, 6)))
-        Gk.append(Q2 @ np.diag(np.exp(rng.uniform(np.log(1e3), np.log(3e4), 6))) @ Q2.T)
-    Hk = (np.stack(Hk) * nk[:, None, None]).astype(f32)
-    Gk = (np.stack(Gk) * nk[:, None, None]).astype(f32)
-    d = rng.normal(0, 2e-3, (K, 6))
-    if all_agree:
-        d[:] = 0.0
-    else:
-        d[rng.integers(K)] += rng.normal(0, 3e-2, 6)
-    bk = np.einsum("kij,kj->ki", Hk, d).astype(f32)
-    ek = (rng.uniform(0.05, 0.3, K) * nk).astype(f32)
-    if not all_agree:
-        ek[rng.integers(K)] = f32(rng.uniform(1.0, 5.0)) * nk[0]
-    prev = rng.integers(0, 6, K).astype(f32)
-    return Hk, bk, nk, Gk, ek, prev
-
-
-CASES = ["majority", "static", "error_outlier", "hostage", "two_voter", "dominance"]
-RANDOM = [(s, False, False) for s in range(8)] + [(100, True, False), (101, True, False),
-                                                  (200, False, True)]
+def _tt(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
 
 
 def _analyze_both(sums, tol=0.4, bscale=1.0):
     Hk, bk, nk, Gk, ek, prev = sums
     j = jcons.analyze(*(jnp.asarray(a) for a in (Hk, bk, nk, Gk, ek)), tol, 0.03,
                       baseline_scale=jnp.asarray(bscale, jnp.float32))
-    t = tcons.analyze(Hk, bk, nk, Gk, ek, tol, 0.03, baseline_scale=np.float32(bscale))
+    t = tcons.analyze(*(_tt(a) for a in (Hk, bk, nk, Gk, ek)), tol, 0.03,
+                      baseline_scale=_tt(bscale))
     jd = jcons.decide(j, jnp.asarray(prev), jnp.asarray(nk), 0.03, 0.35, 3)
-    td = tcons.decide(t, prev, nk, 0.03, 0.35, 3)
+    td = tcons.decide(t, _tt(prev), _tt(nk), 0.03, 0.35, 3)
     return j, t, jd, td
 
 
 def _same_verdict(j, t, jd, td, what):
     """Flags equal; deltas and info_share within 1e-5 relative (to the
-    largest entry: a float32 eigensolve in another LAPACK routine's order)."""
+    largest entry: the port's float64 Jacobi against the JAX package's
+    float32 LAPACK eigensolve)."""
     for f in ("excluded", "hostage", "dominant"):
         np.testing.assert_array_equal(getattr(t, f), np.asarray(getattr(j, f)), err_msg=f"{what} {f}")
     assert t.majority_ok == bool(j.majority_ok), what
@@ -211,12 +139,15 @@ def test_analyze_decide_random_match_jax(seed, even, agree):
 
 def test_nanmedian_takes_the_mean_of_the_two_middle_values():
     """The median trap: torch.nanmedian gives the lower middle value, the
-    JAX package (and numpy) the mean of the two; the port uses numpy's."""
+    JAX package (and numpy) the mean of the two; the port's device
+    ``nanmedian`` takes numpy's, 0 when nothing is left."""
     x = np.array([1.0, 2.0, 3.0, 4.0, np.nan], np.float32)
     assert float(jnp.nanmedian(jnp.asarray(x))) == 2.5
-    assert float(tcons._nanmedian(x)) == 2.5
+    assert float(tcons.nanmedian(torch.from_numpy(x))) == 2.5
     assert float(torch.nanmedian(torch.from_numpy(x))) == 2.0
-    assert float(tcons._nanmedian(np.full(3, np.nan, np.float32))) == 0.0
+    assert float(tcons.nanmedian(torch.full((3,), float("nan")))) == 0.0
+    y = np.array([5.0, np.nan, 1.0, 3.0, 2.0], np.float32)
+    assert float(tcons.nanmedian(torch.from_numpy(y))) == float(np.nanmedian(y)) == 2.5
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +157,7 @@ def test_nanmedian_takes_the_mean_of_the_two_middle_values():
 def test_stratum_index_and_member_mask_match_jax():
     """xi at, just below and just above every edge, and outside the range:
     the same bins, the same one-hot partition, the same member mask (also
-    through ``excluded_mask``, which the tracker uses)."""
+    through ``masked``, which the tracker uses with a device member)."""
     edges = tcons.stratum_edges(0.1, 3.4, K)
     np.testing.assert_array_equal(edges, np.asarray(jcons.stratum_edges(0.1, 3.4, K)))
     xs = [0.0, 0.05, 5.0]
@@ -245,7 +176,8 @@ def test_stratum_index_and_member_mask_match_jax():
     got = tcons.member_mask(torch.from_numpy(xi), torch.from_numpy(mask), te, torch.from_numpy(member))
     np.testing.assert_array_equal(got.numpy(), ref)
     idx = tcons.stratum_index(torch.from_numpy(xi), te)
-    np.testing.assert_array_equal(tcons.excluded_mask(idx, torch.from_numpy(mask), member).numpy(), ref)
+    np.testing.assert_array_equal(
+        tcons.masked(idx, torch.from_numpy(mask), torch.from_numpy(member)).numpy(), ref)
 
 
 # ---------------------------------------------------------------------------
@@ -440,10 +372,10 @@ def test_step_per_frame_matches_jax_on_mover_clip(mover_packed, options):
 
 def test_convert_round_trips_streaks(mover_packed):
     """The motion state's streak counts survive the trip into the port and
-    back (a host float32 array in the port)."""
+    back (a float32 device vector in the port, as in the JAX package)."""
     m = JMotionState.initial(K)._replace(cons_excluded=jnp.asarray([0, 1, 2, 7, 0, 3], jnp.float32))
     tm = convert.motion_from_reference(jax.tree_util.tree_map(np.asarray, m), "cpu")
-    assert isinstance(tm.cons_excluded, np.ndarray) and tm.cons_excluded.dtype == np.float32
+    assert isinstance(tm.cons_excluded, torch.Tensor) and tm.cons_excluded.dtype == torch.float32
     back = convert.motion_to_numpy(tm)
     np.testing.assert_array_equal(back.cons_excluded, np.asarray(m.cons_excluded))
     np.testing.assert_array_equal(back.T_ck, np.asarray(m.T_ck))

@@ -268,8 +268,8 @@ def test_run_ranks_raises_a_rank_exception():
 @pytest.mark.parametrize("case", ["tracked", "few valid", "not positive definite"])
 def test_irls_solve_step_plain_equals_ic_update(case):
     """``irls_solve_step`` on the CPU is ``ic_update`` on the unpacked
-    result, the same bits, in the fused layout; under the early exit it
-    returns ``prev``."""
+    result, the same bits, in the fused layout; under the early exit it is
+    ``prev``, bit for bit."""
     from rgbid_tpu_torch.ops import gauss_newton, kernels
 
     rng = np.random.default_rng({"tracked": 0, "few valid": 1, "not positive definite": 2}[case])
@@ -290,7 +290,7 @@ def test_irls_solve_step_plain_equals_ic_update(case):
     assert all(torch.equal(a, b) for a, b in zip(step.result, res))
     assert bool(step.delta.any()) == (case == "tracked")
     again = kernels.irls_solve_step(T, vec, 1e-4, prev=step, tol=1e3)
-    assert again is step
+    assert torch.equal(again.out, step.out)
 
 
 def test_allreduce_irls_one_rank_is_identity():
