@@ -1112,15 +1112,15 @@ def consensus_fixture(name):
     raise KeyError(name)
 
 
-def consensus_random_sums(seed, even_voters=False, all_agree=False):
-    """Seeded random per-stratum sums: SPD H and G with a wide but bounded
-    eigenvalue spread, corrections of mixed size, errors around the
-    outlier floor. ``even_voters``: four voting strata (an even count, the
-    median's two-middle-values case); ``all_agree``: every stratum is
-    converged (b = 0), so every hypothesis has the same support and the
-    first index must win the argmax."""
+def consensus_random_sums(seed, even_voters=False, all_agree=False, k=CONSENSUS_K):
+    """Seeded random per-stratum sums of ``k`` strata: SPD H and G with a
+    wide but bounded eigenvalue spread, corrections of mixed size, errors
+    around the outlier floor. ``even_voters``: four voting strata of six
+    (an even count, the median's two-middle-values case); ``all_agree``:
+    every stratum is converged (b = 0), so every hypothesis has the same
+    support and the first index must win the argmax."""
     rng = np.random.default_rng(seed)
-    f32, K = np.float32, CONSENSUS_K
+    f32, K = np.float32, k
     nk = rng.uniform(800, 4000, K).astype(f32)
     if even_voters:
         nk[[1, 4]] = rng.uniform(5, 20, 2).astype(f32)
@@ -1149,6 +1149,65 @@ def consensus_random_sums(seed, even_voters=False, all_agree=False):
 CONSENSUS_CASES = ["majority", "static", "error_outlier", "hostage", "two_voter", "dominance"]
 CONSENSUS_RANDOM = [(s, False, False) for s in range(8)] + [(100, True, False), (101, True, False),
                                                   (200, False, True)]
+
+
+def consensus_edge_sums(name):
+    """(Hk, bk, nk, Gk, ek, prev_counts) of the vote's edge cases, float32:
+    ``k<K>`` seeded random sums of K strata (the vote kernel's groups of
+    four strata a warp and its rows of eight pairs end at K 4, 8, 12 and
+    16); ``zero_pixels`` a stratum with no pixel (all its sums 0);
+    ``apq_zero`` a stratum whose H[0][1], the first rotation's pivot, is 0
+    at entry; ``tied_medians`` equal per-pixel errors among the voters, +0
+    and -0 among them, around the middle of both medians; ``tied_support``
+    a stratum equal to the first one, so two hypotheses share the best
+    support; ``nan_h``, ``inf_g``, ``inf_err``, ``nan_err``, ``inf_nk``,
+    ``nan_nk`` a NaN or an infinity in one stratum's sums (under ``nan_h``
+    every information share is NaN, the attack probe fires, and its
+    argmax must land on the first NaN, stratum 2)."""
+    f32 = np.float32
+    if name.startswith("k"):
+        k = int(name[1:])
+        return consensus_random_sums(300 + k, k=k)
+    Hk, bk, nk, Gk, ek, prev = consensus_random_sums(
+        {"zero_pixels": 3, "tied_medians": 5, "tied_support": 6, "nan_h": 10}.get(name, 4),
+        k=8 if name == "tied_medians" else CONSENSUS_K)
+    if name == "zero_pixels":
+        Hk[2], bk[2], nk[2], Gk[2], ek[2] = 0.0, 0.0, 0.0, 0.0, 0.0
+    elif name == "apq_zero":
+        Hk[1, 0, 1] = Hk[1, 1, 0] = 0.0
+    elif name == "tied_medians":
+        nk[:] = f32(2500.0)
+        nk[6:] = f32(40.0), f32(30.0)  # two non-voters
+        per_pixel = np.array([0.5, 0.5, 0.0, -0.0, 0.5, 1.7, 0.9, 0.9], f32)
+        ek[:] = per_pixel * nk
+        ek[3] = f32(-0.0)
+    elif name == "tied_support":
+        for a in (Hk, bk, nk, Gk, ek):
+            a[3] = a[0]
+    elif name == "nan_h":
+        Hk[2, 0, 0] = np.nan
+    elif name == "inf_g":
+        Gk[4, 1, 1] = np.inf
+    elif name == "inf_err":
+        ek[1] = np.inf
+    elif name == "nan_err":
+        ek[5] = np.nan
+    elif name == "inf_nk":
+        nk[3] = np.inf
+    elif name == "nan_nk":
+        nk[0] = np.nan
+    else:
+        raise KeyError(name)
+    return Hk, bk, nk, Gk, ek, prev
+
+
+# The edge cases held to the JAX package on the CPU (tier-1) and, with the
+# rest of K 1..16 and the NaN / Inf sums, the vote kernel to vote_plain on
+# the card.
+CONSENSUS_EDGE_CPU = ["k1", "k5", "k11", "k16", "zero_pixels", "tied_medians"]
+CONSENSUS_EDGE = ([f"k{k}" for k in range(1, 17)]
+                  + ["zero_pixels", "apq_zero", "tied_medians", "tied_support"]
+                  + ["nan_h", "inf_g", "inf_err", "nan_err", "inf_nk", "nan_nk"])
 
 
 
@@ -1717,13 +1776,25 @@ def _vote_params(tc, tol: float):
     return consensus.VoteParams.of(tc, tol)
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (so +0 differs from -0), a NaN matching a NaN
+    (the card's NaN and the CPU's differ in their payload bits)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ia, ib = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return torch.equal(na, nb) and torch.equal(ia[~na], ib[~nb])
+
+
 def _vote_case(label: str, sums: np.ndarray, hist: np.ndarray, tol: float, bscale: float, tc):
     """One vote on the card against its plain version on the CPU, from the
-    initial state and from a state with the last stratum already out.
-    Member vectors, the whole new state, the rerun word and the decision
-    words must be equal; the deltas (float64 Jacobi, then float32) within
-    1e-6 of the largest (the float orders are the same, so they are
-    expected equal bit for bit). Returns (good, max |d| of the deltas)."""
+    initial state and from a state with the last stratum already out. The
+    whole new state, the rerun word, the decision words and the deltas
+    (float64 Jacobi, then float32) must equal the plain version's bit for
+    bit (``_same_bits``), and a rerun the first launch's, NaN payloads
+    included. Returns (good, max |d| of the deltas)."""
     K = sums.shape[0]
     p = _vote_params(tc, tol)
     good, e_abs = True, 0.0
@@ -1742,27 +1813,28 @@ def _vote_case(label: str, sums: np.ndarray, hist: np.ndarray, tol: float, bscal
         ks, kg, kd = (t.cpu() for t in k)
         ps, pg, pd = pl
         dk, dp = consensus.VoteDiag.split(kd, K), consensus.VoteDiag.split(pd, K)
-        scale = float(dp.deltas.abs().max().clamp(min=1e-30))
         ed = float((dk.deltas - dp.deltas).abs().max())
-        words = all(torch.equal(getattr(dk, f), getattr(dp, f)) for f in
-                    ("excluded", "hostage", "dominant", "member", "majority_ok", "triggered",
-                     "rescue", "excluded_frac"))
-        same = (torch.equal(ks, ps) and int(kg) == int(pg) and words and ed <= 1e-6 * scale
-                and all(torch.equal(a, b) for a, b in zip(k, k2)))
+        words = all(_same_bits(getattr(dk, f), getattr(dp, f)) for f in
+                    ("excluded", "hostage", "dominant", "info_share", "member", "majority_ok",
+                     "triggered", "rescue", "excluded_frac"))
+        deltas = _same_bits(dk.deltas, dp.deltas)
+        rerun = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(k, k2))
+        same = _same_bits(ks, ps) and _same_bits(kg, pg) and words and deltas and rerun
         e_abs = max(e_abs, ed)
         good &= same
         if not same:
             print(f"[kernels] consensus_vote {label} ({mname}): state equal "
-                  f"{torch.equal(ks, ps)}, go {int(kg)} / {int(pg)}, words equal {words}, deltas "
-                  f"max|d| {ed:.3e} of {scale:.3e} FAIL")
+                  f"{_same_bits(ks, ps)}, go {int(kg)} / {int(pg)}, words equal {words}, deltas "
+                  f"equal {deltas} (max|d| {ed:.3e}), rerun bit-identical {rerun} FAIL")
     return good, e_abs
 
 
 def phase_consensus_vote(vote_sums):
     """The vote kernel (csrc/consensus_vote.cu) against its plain version
-    (``consensus.vote_plain`` on the CPU): the six synthetic cases and the
-    seeded random sums of tests/test_torch_consensus.py (each at baseline
-    scale 1.0 and 1.7, under its own history), and the VGA vote layouts of
+    (``consensus.vote_plain`` on the CPU): the six synthetic cases, the
+    seeded random sums of tests/test_torch_consensus.py and the edge cases
+    of ``consensus_edge_sums`` (each at baseline scale 1.0 and 1.7, under
+    its own history), and the VGA vote layouts of
     [kernels] esm_stratified at L2 and L1 with K 1, 6 and 16 (under a cold
     and a ripe history), each from a fresh state and one with a stratum
     out. Returns (ok, record, timing)."""
@@ -1780,6 +1852,12 @@ def phase_consensus_vote(vote_sums):
             good, e = _vote_case(f"random {seed} bscale {bscale}", pack_sums(Hk, bk, nk, Gk, ek),
                                  prev, 0.4, bscale, tc)
             ok, e_abs, n = ok and good, max(e_abs, e), n + 1
+    for name in CONSENSUS_EDGE:
+        Hk, bk, nk, Gk, ek, prev = consensus_edge_sums(name)
+        for bscale in (1.0, 1.7):
+            good, e = _vote_case(f"edge {name} bscale {bscale}", pack_sums(Hk, bk, nk, Gk, ek),
+                                 prev, 0.4, bscale, tc)
+            ok, e_abs, n = ok and good, max(e_abs, e), n + 1
     layouts = []
     for lvl, K, strata_from, kh, intr_l in vote_sums:
         tol = tc.consensus_tol * (intr_l.fx * 2.0**lvl / tc.consensus_ref_fx)
@@ -1789,11 +1867,12 @@ def phase_consensus_vote(vote_sums):
                                  tc)
             ok, e_abs, n = ok and good, max(e_abs, e), n + 1
         layouts.append(f"L{lvl} K{K} {strata_from}")
-    print(f"[kernels] consensus_vote: {n} cases x 2 states ({len(CONSENSUS_CASES)} synthetic "
-          f"and {len(CONSENSUS_RANDOM)} random at baseline scale 1.0 and 1.7; VGA {layouts} "
-          f"cold and ripe): member vectors, state, rerun word and decision words equal, deltas "
-          f"max|d| {e_abs:.3e} (tol 1e-6 of the largest), rerun bit-identical "
-          f"{'OK' if ok else 'FAIL'}")
+    print(f"[kernels] consensus_vote: {n} cases x 2 states ({len(CONSENSUS_CASES)} synthetic, "
+          f"{len(CONSENSUS_RANDOM)} random and {len(CONSENSUS_EDGE)} edge cases (K 1..16, a "
+          f"zero-pixel stratum, a zero pivot, tied medians and support, NaN / Inf sums) at "
+          f"baseline scale 1.0 and 1.7; VGA {layouts} cold and ripe): state, rerun word, "
+          f"decision words and deltas equal bit for bit (NaN matching NaN), deltas max|d| "
+          f"{e_abs:.3e}, rerun bit-identical {'OK' if ok else 'FAIL'}")
     # Timed at the vote's own layout: VGA L2, K 6, the default config.
     lvl, K, _, kh, intr_l = next(v for v in vote_sums if v[1] == 6 and v[2] == "depth")
     tol = tc.consensus_tol * (intr_l.fx * 2.0**lvl / tc.consensus_ref_fx)

@@ -17,20 +17,36 @@
 // diagnostics (deltas, excluded, hostage, dominant, info_share, the
 // decision's member, majority_ok, triggered, rescue, excluded_frac).
 //
-// Design: K <= 16, so the work is small; launch latency and the chain of
-// dependent float64 operations bound it. Each stratum's 6x6 eigenproblem
-// is solved by a group of 36 threads, one matrix entry each, in shared
-// memory (JACOBI_SWEEPS cyclic sweeps in the round-robin order of
-// consensus.py::JACOBI_ROUNDS: three disjoint rotations a round, applied
-// to the columns, then the rows, then the eigenvector columns; three
-// barriers a round), then six of them do the truncated-eigenspace solve.
-// The first design gave the whole eigensolve of a stratum to one thread:
-// ~20,000 dependent float64 operations, 189 us a launch against 67 us for
-// this one (an H100 80GB HBM3 at 700 W, chip_smoke.py [times]). Thread (j, k) forms the induced-flow
-// disagreement m[j][k]. Thread 0 then runs the vote, the medians, the
-// hostage test, decide and the bookkeeping, with every sum over the strata
-// taken in stratum order. A chain of ~300 small PyTorch ops would capture
-// into the frame's graph too, but would cost ~300 graph nodes per vote.
+// Design: K <= 16, so the work is small and latency bounds it: the chain
+// of JACOBI_SWEEPS x 5 rounds of dependent float64 divides and square
+// roots of each stratum's 6x6 eigensolve is the floor of any design that
+// keeps the plain version's bits. One block of 128 threads, three block
+// barriers (after the load, after the eigensolves, after the flow metric).
+// 1. Eigensolve: a group of 8 lanes a stratum, four strata a warp; lane i
+//    holds row i of A and of the eigenvectors V in registers (lanes 6 and
+//    7 idle). The rounds are unrolled from the template arguments, so
+//    every column index and partner is a constant. In a round lanes 0-2
+//    each compute one pair's rotation from pivots fetched by shuffle and
+//    hand (c, s) to the group; each lane turns the columns of its rows in
+//    registers and takes its partner row by shuffle for the row turn. No
+//    barrier and no shared memory inside the sweeps. The truncated solve
+//    follows inside the group, by shuffles.
+// 2. Flow metric: one (j, k) stratum pair a thread, 16 pairs a row, so a
+//    warp's ballot holds two rows of the agreement matrix as bitmasks.
+// 3. The vote's tail in the last warp, lane k holding stratum k: what
+//    needs no agreement (the sums, the error median, the information
+//    shares, the state) while the other warps solve, the rest after the
+//    flow metric. Every sum over the strata gathers the K values by
+//    shuffle and adds them in stratum order, the medians select by rank
+//    (the stable sort's order, signed zeros included), the argmaxes keep
+//    torch.argmax's first index (a NaN beats any number).
+// On an H100 80GB HBM3 at 700 W (tools/irls_variants.py --vote) this takes
+// 28.2 us a launch at the VGA L2 vote (K 6): 23.4 in the eigensolve (0.47
+// a round), 1.7 in the tail. PR 13's design (36 threads a stratum in shared memory,
+// three block barriers a round, thread 0 alone for the tail with its
+// arrays in local memory) took 67.5 us, 57 of them in the eigensolve and 8
+// in the tail; a lane a column with every lane computing all three
+// rotations, 70 us (the three chains run one after another in a lane).
 //
 // Float order: every operation follows vote_plain one by one, and the
 // build disables FMA contraction (-fmad=false), so the kernel's output
@@ -53,16 +69,14 @@ namespace {
 
 constexpr int kMaxK = 16;
 constexpr int kCols = 50;
-// 36 threads per stratum for its eigensolve (also >= kMaxK * kMaxK, one
-// thread per (j, k) pair of the flow metric).
-constexpr int kThreads = kMaxK * 36;
+constexpr int kThreads = 128;  // 4 warps: 16 eigensolve groups, 8 rows of pairs a pass
+constexpr int kGroup = 8;      // lanes a stratum in the eigensolve
+// The warp of the vote's tail: the last, which has no eigensolve at K <= 12.
+constexpr int kTailWarp = kThreads / 32 - 1;
 constexpr int kSweeps = 10;    // consensus.py JACOBI_SWEEPS
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMinorityCap = 0.35f;
 constexpr float kErrMinorityCap = 0.40f;
-
-__constant__ int kRounds[5][3][2] = {{{0, 1}, {2, 3}, {4, 5}}, {{0, 2}, {1, 4}, {3, 5}},
-                                     {{0, 4}, {2, 5}, {1, 3}}, {{0, 5}, {4, 3}, {2, 1}},
-                                     {{0, 3}, {5, 1}, {4, 2}}};
 
 // Column of the upper-triangle entry (a, c), a <= c, in the 21-entry
 // blocks of the stratified sums.
@@ -81,109 +95,388 @@ __device__ __forceinline__ float tmax(float a, float b) {
   return a != a ? a : (b != b ? b : (a > b ? a : b));
 }
 
-// consensus.py::nanmedian: the mean of the two middle values of the
-// entries with use[k] set and a non-NaN value; 0 when there is none or the
-// median is not finite.
-__device__ float nanmedian(const float* x, const bool* use, int K) {
-  float v[kMaxK];
-  int c = 0;
-  for (int k = 0; k < K; ++k) {
-    const bool ok = use[k] && !(x[k] != x[k]);
-    v[k] = ok ? x[k] : INFINITY;
-    c += ok ? 1 : 0;
+// The rotation (c, s) of one pair from A[P][P], A[Q][Q], A[P][Q]: the
+// expressions of consensus.py::jacobi_eigh. Where A[P][Q] is 0, jacobi_eigh
+// sets t = 0, so c = 1 / sqrt(0 * 0 + 1) = 1 and s = 0 * c = +0 exactly:
+// the chain is skipped there (its divides by 0 take the slow path).
+__device__ __forceinline__ void rotation(double app, double aqq, double apq, double& c,
+                                         double& s) {
+  c = 1.0;
+  s = 0.0;
+  if (apq == 0.0) return;
+  const double theta = (aqq - app) / (2.0 * apq);
+  const double sgn = theta >= 0.0 ? 1.0 : -1.0;
+  const double tt = sgn / (fabs(theta) + sqrt(theta * theta + 1.0));
+  c = 1.0 / sqrt(tt * tt + 1.0);
+  s = tt * c;
+}
+
+// One round of consensus.py::JACOBI_ROUNDS, the pairs (P0, Q0), (P1, Q1),
+// (P2, Q2), on the group's matrix: lane i holds row i of A (a[j] =
+// A[i][j]) and of V. Lane q < 3 computes pair q's rotation (the pivots
+// fetched by shuffle: each lane offers A[i][i] and A[i][partner i]) and
+// hands (c, s) to the group. As in jacobi_eigh, the rotations turn the
+// columns of A, then its rows, then the columns of V: a'[i][r] = a[i][r]
+// c_r + a[i][partner r] (sign_r s_r), sign -1 for P and +1 for Q. The
+// column turns are this lane's own row; the row turn takes the partner row
+// by shuffle. A group past K (``live`` false) turns nothing.
+template <int P0, int Q0, int P1, int Q1, int P2, int Q2>
+__device__ __forceinline__ void jacobi_round(double (&a)[6], double (&v)[6], int i, bool live) {
+  constexpr int P[3] = {P0, P1, P2}, Q[3] = {Q0, Q1, Q2};
+  int pt[6];
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+    pt[P[x]] = Q[x];
+    pt[Q[x]] = P[x];
   }
-  for (int i = 1; i < K; ++i) {  // insertion sort, ascending
-    const float t = v[i];
-    int j = i - 1;
-    while (j >= 0 && v[j] > t) {
-      v[j + 1] = v[j];
-      --j;
+  double diag = a[0], off = a[pt[0]];
+  int p = P[0], q = Q[0];
+#pragma unroll
+  for (int x = 1; x < 6; ++x) {
+    if (i == x) {
+      diag = a[x];
+      off = a[pt[x]];
     }
-    v[j + 1] = t;
+  }
+#pragma unroll
+  for (int x = 1; x < 3; ++x) {
+    if (i == x) {
+      p = P[x];
+      q = Q[x];
+    }
+  }
+  const double app = __shfl_sync(kFull, diag, p, kGroup);
+  const double aqq = __shfl_sync(kFull, diag, q, kGroup);
+  const double apq = __shfl_sync(kFull, off, p, kGroup);
+  double c = 1.0, s = 0.0;
+  if (live && i < 3) rotation(app, aqq, apq, c, s);
+  double cv[6], sv[6];
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+    const double cx = __shfl_sync(kFull, c, x, kGroup), sx = __shfl_sync(kFull, s, x, kGroup);
+    cv[P[x]] = cx;
+    cv[Q[x]] = cx;
+    sv[P[x]] = sx * -1.0;
+    sv[Q[x]] = sx * 1.0;
+  }
+  double t[6], w[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    t[j] = a[j] * cv[j] + a[pt[j]] * sv[j];
+    w[j] = v[j] * cv[j] + v[pt[j]] * sv[j];
+  }
+  double ci = 1.0, si = 0.0;
+  int pi = i;
+#pragma unroll
+  for (int x = 0; x < 6; ++x) {
+    if (i == x) {
+      ci = cv[x];
+      si = sv[x];
+      pi = pt[x];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const double tp = __shfl_sync(kFull, t[j], pi, kGroup);
+    a[j] = t[j] * ci + tp * si;
+    v[j] = w[j];
+  }
+}
+
+// Every stratum's correction: the Jacobi eigensolve of Hn (float64) and
+// the truncated-eigenspace solve, by groups of 8 lanes, four strata a warp
+// (see the design note). Called by every thread of the block; warps with
+// no stratum return at once, and every lane of a warp that has one takes
+// part in each shuffle (the groups past K and the lanes 6, 7 compute on
+// zeros and store nothing). Writes delta (shared) and the diag's deltas.
+__device__ void strata_deltas(const float* __restrict__ s, int K, float (*delta)[6],
+                              float* __restrict__ diag) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp * (32 / kGroup) >= K) return;
+  const int k = warp * (32 / kGroup) + lane / kGroup, i = lane % kGroup;
+  const bool live = k < K, active = live && i < 6;
+  const float* h = s + (live ? k : 0) * kCols;
+  const float inv_n = 1.0f / clamp_min(h[27], 1.f);
+  double a[6], v[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    a[j] = active ? static_cast<double>(h[upper(i, j)] * inv_n) : 0.0;
+    v[j] = i == j ? 1.0 : 0.0;
+  }
+#pragma unroll 1
+  for (int sweep = 0; sweep < kSweeps; ++sweep) {
+    jacobi_round<0, 1, 2, 3, 4, 5>(a, v, i, live);
+    jacobi_round<0, 2, 1, 4, 3, 5>(a, v, i, live);
+    jacobi_round<0, 4, 2, 5, 1, 3>(a, v, i, live);
+    jacobi_round<0, 5, 4, 3, 2, 1>(a, v, i, live);
+    jacobi_round<0, 3, 5, 1, 4, 2>(a, v, i, live);
+  }
+  // The truncated solve in analyze's order: emax over the eigenvalues in
+  // index order; lane e's inverse eigenvalue; proj[e] = sum over l in
+  // order of V[l][e] b[l], gathered from the rows' lanes; then this
+  // lane's delta[i] = sum over j in order of V[i][j] (inv[j] proj[j]).
+  double dg[6];
+#pragma unroll
+  for (int x = 0; x < 6; ++x) dg[x] = __shfl_sync(kFull, a[x], x, kGroup);
+  double emax = dg[0], ev = dg[0];
+#pragma unroll
+  for (int x = 1; x < 6; ++x) {
+    emax = tmax(emax, dg[x]);
+    if (i == x) ev = dg[x];
+  }
+  const double inv_own = ev > 0.01 * emax ? 1.0 / clamp_min(ev, 1e-12) : 0.0;
+  const double b_own = active ? static_cast<double>(h[21 + i] * inv_n) : 0.0;
+  double proj[6];
+#pragma unroll
+  for (int l = 0; l < 6; ++l) {
+#pragma unroll
+    for (int e = 0; e < 6; ++e) {
+      const double x = __shfl_sync(kFull, v[e] * b_own, l, kGroup);
+      proj[e] = l == 0 ? x : proj[e] + x;
+    }
+  }
+  double d = 0.0;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const double wj = __shfl_sync(kFull, inv_own, j, kGroup) * proj[j];
+    d = j == 0 ? v[0] * wj : d + v[j] * wj;
+  }
+  if (active) {
+    const float f = static_cast<float>(d);
+    delta[k][i] = isfinite(f) ? f : 0.f;
+    diag[k * 6 + i] = delta[k][i];
+  }
+}
+
+// The agreement matrix in the induced-flow metric: bit k of rows[j] is
+// agree[j][k], m[j][k] = (d_j - d_k)^T (G_j / n_j) (d_j - d_k) <= tol_eff^2,
+// in analyze's order. Thread t takes the pair (row0 + t / 16, t % 16), so
+// a warp's ballot holds two rows.
+__device__ void agreement(const float* __restrict__ s, const float (*delta)[6], int K,
+                          float tol_eff, unsigned* rows) {
+  const int lane = threadIdx.x % 32;
+  for (int row0 = 0; row0 < K; row0 += kThreads / kMaxK) {
+    const int j = row0 + threadIdx.x / kMaxK, k = threadIdx.x % kMaxK;
+    bool agree = false;
+    if (j < K && k < K) {
+      const float* g = s + j * kCols + 29;
+      const float inv_n = 1.0f / clamp_min(s[j * kCols + 27], 1.f);
+      float diff[6];
+#pragma unroll
+      for (int l = 0; l < 6; ++l) diff[l] = delta[j][l] - delta[k][l];
+      float m = 0.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        float ti = (g[upper(i, 0)] * inv_n) * diff[0];
+#pragma unroll
+        for (int l = 1; l < 6; ++l) ti = ti + (g[upper(i, l)] * inv_n) * diff[l];
+        m = i == 0 ? diff[0] * ti : m + diff[i] * ti;
+      }
+      agree = m <= tol_eff * tol_eff;
+    }
+    const unsigned bits = __ballot_sync(kFull, agree);
+    const int r = row0 + 2 * (threadIdx.x / 32);
+    if (lane == 0 && r < kMaxK) {
+      rows[r] = bits & 0xffffu;
+      rows[r + 1] = bits >> 16;
+    }
+  }
+}
+
+// The tail warp's helpers: lane k < K holds stratum k's value, and
+// every lane gets the result.
+
+// consensus.py::_seqsum: x_0, then + x_1, ..., + x_{K-1}.
+__device__ __forceinline__ float seqsum(float x, int K) {
+  float acc = __shfl_sync(kFull, x, 0);
+#pragma unroll
+  for (int q = 1; q < kMaxK; ++q) {
+    const float y = __shfl_sync(kFull, x, q);
+    if (q < K) acc = acc + y;
+  }
+  return acc;
+}
+
+// torch.argmax over x_0..x_{K-1}: the first NaN if there is one, else the
+// first of the largest values.
+__device__ __forceinline__ int argmax_first(float x, int K, float& best_v) {
+  int best = 0;
+  best_v = __shfl_sync(kFull, x, 0);
+#pragma unroll
+  for (int q = 1; q < kMaxK; ++q) {
+    const float y = __shfl_sync(kFull, x, q);
+    if (q < K && (y > best_v || (y != y && best_v == best_v))) {
+      best = q;
+      best_v = y;
+    }
+  }
+  return best;
+}
+
+// consensus.py::nanmedian of the lanes' x where ``use`` is set and x is
+// not NaN: the mean of the values at ranks (c - 1) / 2 and c / 2 of the
+// ascending order, the others counting as +inf; 0 when there is none or
+// the median is not finite. A lane's rank is the number of smaller values
+// plus the number of equal ones at lower lanes: the stable sort's order,
+// so the same elements as torch.sort's (signed zeros compare equal).
+__device__ __forceinline__ float nanmedian(float x, bool use, int K, int lane) {
+  const bool ok = use && !(x != x);
+  const float u = ok ? x : INFINITY;
+  const int c = __popc(__ballot_sync(kFull, ok));
+  int rank = 0;
+#pragma unroll
+  for (int q = 0; q < kMaxK; ++q) {
+    const float y = __shfl_sync(kFull, u, q);
+    if (q < K && (y < u || (y == u && q < lane))) ++rank;
   }
   int lo = (c - 1) / 2, hi = c / 2;
   lo = lo < 0 ? 0 : (lo > K - 1 ? K - 1 : lo);
   hi = hi < 0 ? 0 : (hi > K - 1 ? K - 1 : hi);
-  const float med = (v[lo] + v[hi]) / 2.0f;
+  const int at_lo = __ffs(__ballot_sync(kFull, lane < K && rank == lo)) - 1;
+  const int at_hi = __ffs(__ballot_sync(kFull, lane < K && rank == hi)) - 1;
+  const float med = (__shfl_sync(kFull, u, at_lo) + __shfl_sync(kFull, u, at_hi)) / 2.0f;
   return (c > 0 && isfinite(med)) ? med : 0.f;
 }
 
-// Index x's partner in round r's pair.
-__device__ __forceinline__ int partner(int r, int x) {
-  int p = x;
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    if (kRounds[r][q][0] == x) p = kRounds[r][q][1];
-    if (kRounds[r][q][1] == x) p = kRounds[r][q][0];
-  }
-  return p;
+// Whether any lane < K has ``b`` set: a _seqsum of 0/1 flags > 0.5.
+__device__ __forceinline__ bool any_lane(bool b, int K, int lane) {
+  return __ballot_sync(kFull, b && lane < K) != 0u;
 }
 
-// Stratum k's Jacobi eigensolve of Hn (float64) and truncated solve, by the
-// 36 threads e = 6 i + j of its group, one matrix entry each: every entry's
-// update is the same expression as in the plain version, so the lanes'
-// parallel order changes no bit. Every thread of the block calls it (the
-// barriers); ``active`` is false for the groups past K.
-__device__ void strata_deltas(const float* __restrict__ s, const float* __restrict__ inv_n,
-                              int K, float (*delta)[6]) {
-  __shared__ double A[kMaxK][6][6], V[kMaxK][6][6], T[kMaxK][6][6], W[kMaxK][6][6];
-  __shared__ double cv[kMaxK][6], sv[kMaxK][6], w[kMaxK][6];
-  const int t = threadIdx.x;
-  const int k = t / 36, e = t % 36, i = e / 6, j = e % 6;
-  const bool active = k < K;
-  if (active) {
-    A[k][i][j] = static_cast<double>(s[k * kCols + upper(i, j)] * inv_n[k]);
-    V[k][i][j] = i == j ? 1.0 : 0.0;
-  }
-  for (int sweep = 0; sweep < kSweeps; ++sweep) {
-    for (int r = 0; r < 5; ++r) {
-      if (active && e < 3) {
-        const int P = kRounds[r][e][0], Q = kRounds[r][e][1];
-        const double app = A[k][P][P], aqq = A[k][Q][Q], apq = A[k][P][Q];
-        const double theta = (aqq - app) / (2.0 * apq);
-        const double sgn = theta >= 0.0 ? 1.0 : -1.0;
-        double tt = sgn / (fabs(theta) + sqrt(theta * theta + 1.0));
-        if (apq == 0.0) tt = 0.0;
-        const double c = 1.0 / sqrt(tt * tt + 1.0);
-        const double sn = tt * c;
-        cv[k][P] = c;
-        cv[k][Q] = c;
-        sv[k][P] = sn * -1.0;
-        sv[k][Q] = sn * 1.0;
-      }
-      __syncthreads();
-      if (active) {
-        const int pj = partner(r, j);
-        T[k][i][j] = A[k][i][j] * cv[k][j] + A[k][i][pj] * sv[k][j];
-        W[k][i][j] = V[k][i][j] * cv[k][j] + V[k][i][pj] * sv[k][j];
-      }
-      __syncthreads();
-      if (active) {
-        const int pi = partner(r, i);
-        A[k][i][j] = T[k][i][j] * cv[k][i] + T[k][pi][j] * sv[k][i];
-        V[k][i][j] = W[k][i][j];
-      }
-      __syncthreads();
+// Stratum ``lane``'s part of the vote that needs no agreement, and the
+// state it will update: the tail warp computes it while the other warps
+// solve. Lane k holds stratum k; the lanes past K hold zeros and count in
+// no sum, rank or flag.
+struct Strata {
+  bool valid, voter, dominant, minority;
+  int n_voters;
+  float nk, n_total, err_n, err_thr, info_share;
+  float hist, member, flags_any, probe_cand, excl_any, probe_fire, frac_any, rescue_any;
+};
+
+__device__ __forceinline__ Strata strata_prefix(const float* __restrict__ s, const VoteParams& p,
+                                                float bscale, const float* __restrict__ hist,
+                                                const float* __restrict__ state, int lane) {
+  const int K = p.k;
+  Strata a;
+  a.valid = lane < K;
+  const float* h = s + (a.valid ? lane : 0) * kCols;
+  a.nk = a.valid ? h[27] : 0.f;
+  const float inv_n = 1.0f / clamp_min(a.nk, 1.f);
+  a.n_total = clamp_min(seqsum(a.nk, K), 1.f);
+  a.voter = a.valid && a.nk >= p.min_frac * a.n_total;
+  a.n_voters = __popc(__ballot_sync(kFull, a.voter));
+  a.err_n = h[28] * inv_n;
+  const float err_med = nanmedian(a.err_n, a.voter, K, lane);
+  a.err_thr = clamp_min(p.err_ratio * err_med * bscale, p.err_floor);
+  float info = h[upper(0, 0)];
+#pragma unroll
+  for (int i = 1; i < 6; ++i) info = info + h[upper(i, i)];
+  a.info_share = info / clamp_min(seqsum(info, K), 1e-12f);
+  const float pix_share = a.nk / a.n_total;
+  a.dominant = a.voter && (a.info_share > 2.0f * clamp_min(pix_share, 1e-6f));
+  a.minority = a.nk < kMinorityCap * a.n_total;
+  a.hist = a.valid ? hist[lane] : 0.f;
+  a.member = a.valid ? state[lane] : 0.f;
+  a.flags_any = a.valid ? state[K + lane] : 0.f;
+  a.probe_cand = a.valid ? state[3 * K + lane] : 0.f;
+  a.excl_any = a.valid ? state[4 * K + lane] : 0.f;
+  a.probe_fire = state[5 * K];
+  a.frac_any = state[5 * K + 1];
+  a.rescue_any = state[5 * K + 2];
+  return a;
+}
+
+// The rest of analyze (the vote, the error outliers, the hostage), decide
+// and the vote's bookkeeping (tracking/tracker.py), from the agreement
+// rows; writes the new state, the rerun word and the diagnostics.
+__device__ __forceinline__ void vote_finish(const Strata& a, const unsigned* rows,
+                                            const VoteParams& p, float* __restrict__ o,
+                                            int* __restrict__ go, float* __restrict__ diag,
+                                            int lane) {
+  const int K = p.k;
+  // Support of hypothesis ``lane``: the sum over j in order of
+  // agree[j][lane] x (n_j x voter_j).
+  const float wv = a.nk * (a.voter ? 1.f : 0.f);
+  float sup = 0.f;
+#pragma unroll
+  for (int q = 0; q < kMaxK; ++q) {
+    const float wq = __shfl_sync(kFull, wv, q);
+    if (q < K) {
+      const float term = (((rows[q] >> lane) & 1u) ? 1.f : 0.f) * wq;
+      sup = q == 0 ? term : sup + term;
     }
   }
-  if (active && e < 6) {
-    double emax = A[k][0][0];
-    for (int q = 1; q < 6; ++q) emax = tmax(emax, A[k][q][q]);
-    const double ev = A[k][e][e];
-    const double inv = ev > 0.01 * emax ? 1.0 / clamp_min(ev, 1e-12) : 0.0;
-    double proj = V[k][0][e] * static_cast<double>(s[k * kCols + 21] * inv_n[k]);
-    for (int l = 1; l < 6; ++l)
-      proj = proj + V[k][l][e] * static_cast<double>(s[k * kCols + 21 + l] * inv_n[k]);
-    w[k][e] = inv * proj;
+  sup = a.voter ? sup : -1.f;
+  float best_v;
+  const int best = argmax_first(sup, K, best_v);
+  const bool enough = a.n_voters >= 3;
+  const bool majority_ok = (best_v > 0.6f * a.n_total) && enough;
+  const unsigned row = a.valid ? rows[lane] : 0u;
+  const bool ex_vote = a.voter && !((row >> best) & 1u);
+  const bool ex_err = a.voter && (a.nk < kErrMinorityCap * a.n_total) && (a.err_n > a.err_thr);
+  bool excluded = (ex_vote && majority_ok) || ex_err;
+  const bool others = a.voter && !excluded && !a.dominant;
+  const float others_med = nanmedian(a.err_n, others, K, lane);
+  const bool hostage = a.dominant && enough && a.minority &&
+                       (others_med > 2.0f * clamp_min(a.err_n, 1e-3f)) && (others_med > 0.35f);
+  if (any_lane(hostage, K, lane)) excluded = ex_vote && majority_ok;
+
+  // decide.
+  const float persist1 = static_cast<float>(p.persist - 1), persist = static_cast<float>(p.persist);
+  const float ex_f = excluded ? 1.f : 0.f;
+  const float hostage_f = hostage ? 1.f : 0.f;
+  const float gate = a.hist >= persist1 ? 1.f : 0.f;
+  const float persistent = ex_f * gate;
+  const float hostage_p = hostage_f * gate;
+  const float excluded_frac = seqsum(persistent * a.nk, K) / a.n_total;
+  const bool triggered =
+      (excluded_frac > p.trigger_frac) && (excluded_frac < p.max_frac) && majority_ok;
+  const bool rescue = any_lane(hostage_p > 0.5f, K, lane);
+  const bool act = triggered || rescue;
+  const float recent = a.hist >= persist ? 1.f : 0.f;
+  const float ex = rescue ? tmax(tmax(persistent, hostage_p), recent) : persistent;
+  const float member_d = act ? 1.0f - ex : 1.f;
+  const float excl_sum = seqsum(ex * a.nk, K);
+  const float frac_out = act ? excl_sum / a.n_total : 0.f;
+
+  // The bookkeeping. n_total is the attack probe's tot_k: the same
+  // clamped sum.
+  const float m2 = a.member * member_d;
+  float probe_cand = a.probe_cand, excl_any = a.excl_any, probe_fire = a.probe_fire;
+  if (p.attack_probe) {
+    const bool pool = a.voter && (ex_f < 0.5f) && (a.nk < kMinorityCap * a.n_total);
+    const float dens = pool ? a.info_share / clamp_min(a.nk / a.n_total, 1e-6f) : -1.f;
+    float best_d;
+    const int arg = argmax_first(dens, K, best_d);
+    const bool fire = any_lane(excluded, K, lane) && majority_ok && any_lane(pool, K, lane);
+    if (fire) probe_cand = lane == arg ? 1.f : 0.f;
+    excl_any = tmax(excl_any, ex_f);
+    probe_fire = tmax(probe_fire, fire ? 1.f : 0.f);
   }
-  __syncthreads();
-  if (active && e < 6) {
-    double d = V[k][e][0] * w[k][0];
-    for (int q = 1; q < 6; ++q) d = d + V[k][e][q] * w[k][q];
-    const float f = static_cast<float>(d);
-    delta[k][e] = isfinite(f) ? f : 0.f;
+  const bool changed = any_lane(m2 < a.member, K, lane);
+  if (a.valid) {
+    o[lane] = m2;
+    o[K + lane] = tmax(a.flags_any, tmax(ex_f, hostage_f));
+    o[2 * K + lane] = a.nk;
+    o[3 * K + lane] = probe_cand;
+    o[4 * K + lane] = excl_any;
+    diag[6 * K + lane] = ex_f;
+    diag[7 * K + lane] = hostage_f;
+    diag[8 * K + lane] = (a.dominant && a.minority) ? 1.f : 0.f;
+    diag[9 * K + lane] = a.info_share;
+    diag[10 * K + lane] = member_d;
   }
-  __syncthreads();
+  if (lane == 0) {
+    o[5 * K] = probe_fire;
+    o[5 * K + 1] = tmax(a.frac_any, frac_out);
+    o[5 * K + 2] = tmax(a.rescue_any, rescue ? 1.f : 0.f);
+    *go = (act && changed && !rescue) ? 1 : 0;
+    diag[11 * K] = majority_ok ? 1.f : 0.f;
+    diag[11 * K + 1] = act ? 1.f : 0.f;
+    diag[11 * K + 2] = rescue ? 1.f : 0.f;
+    diag[11 * K + 3] = frac_out;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -192,188 +485,21 @@ consensus_vote_kernel(VoteParams p, const float* __restrict__ sums,
                       const float* __restrict__ state, float* __restrict__ state_out,
                       int* __restrict__ go, float* __restrict__ diag) {
   const int K = p.k;
-  const int t = threadIdx.x;
   __shared__ float s[kMaxK * kCols];
-  __shared__ float nk[kMaxK], inv_n[kMaxK], delta[kMaxK][6];
-  __shared__ bool agree[kMaxK][kMaxK];
-  __shared__ float n_total;
-  for (int i = t; i < K * kCols; i += kThreads) s[i] = sums[i];
-  __syncthreads();
-  if (t < K) {
-    nk[t] = s[t * kCols + 27];
-    inv_n[t] = 1.0f / clamp_min(s[t * kCols + 27], 1.f);
-  }
-  if (t == 0) {
-    float acc = s[27];
-    for (int k = 1; k < K; ++k) acc = acc + s[k * kCols + 27];
-    n_total = clamp_min(acc, 1.f);
-  }
-  __syncthreads();
-  strata_deltas(s, inv_n, K, delta);
+  __shared__ float delta[kMaxK][6];
+  __shared__ unsigned rows[kMaxK];
+  for (int i = threadIdx.x; i < K * kCols; i += kThreads) s[i] = sums[i];
   const float bscale = *bscale_p;
-  if (t < K * K) {
-    const int j = t / K, k = t % K;
-    const float* g = s + j * kCols + 29;
-    float diff[6];
-#pragma unroll
-    for (int l = 0; l < 6; ++l) diff[l] = delta[j][l] - delta[k][l];
-    float m = 0.f;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      float ti = (g[upper(i, 0)] * inv_n[j]) * diff[0];
-#pragma unroll
-      for (int l = 1; l < 6; ++l) ti = ti + (g[upper(i, l)] * inv_n[j]) * diff[l];
-      m = i == 0 ? diff[0] * ti : m + diff[i] * ti;
-    }
-    const float tol_eff = p.tol * bscale;
-    agree[j][k] = m <= tol_eff * tol_eff;
-  }
+  const bool tail = threadIdx.x / 32 == kTailWarp;
+  const int lane = threadIdx.x % 32;
   __syncthreads();
-  if (t != 0) return;
-
-  // analyze: the vote, the error outliers, the hostage.
-  bool voter[kMaxK], ex_vote[kMaxK], excluded[kMaxK], dominant[kMaxK], hostage[kMaxK];
-  bool minority[kMaxK], others[kMaxK];
-  float err_n[kMaxK], info_share[kMaxK];
-  int n_voters = 0;
-  for (int k = 0; k < K; ++k) {
-    voter[k] = nk[k] >= p.min_frac * n_total;
-    n_voters += voter[k] ? 1 : 0;
-    err_n[k] = s[k * kCols + 28] * inv_n[k];
-  }
-  int best = 0;
-  float best_v = 0.f;
-  for (int k = 0; k < K; ++k) {
-    float sup = (agree[0][k] ? 1.f : 0.f) * (nk[0] * (voter[0] ? 1.f : 0.f));
-    for (int j = 1; j < K; ++j) sup = sup + (agree[j][k] ? 1.f : 0.f) * (nk[j] * (voter[j] ? 1.f : 0.f));
-    sup = voter[k] ? sup : -1.f;
-    if (k == 0 || sup > best_v) {
-      best = k;
-      best_v = sup;
-    }
-  }
-  const float err_med = nanmedian(err_n, voter, K);
-  const float err_thr = clamp_min(p.err_ratio * err_med * bscale, p.err_floor);
-  const bool enough = n_voters >= 3;
-  const bool majority_ok = (best_v > 0.6f * n_total) && enough;
-  float info[kMaxK];
-  float info_sum = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float* h = s + k * kCols;
-    float acc = h[upper(0, 0)];
-    for (int i = 1; i < 6; ++i) acc = acc + h[upper(i, i)];
-    info[k] = acc;
-    info_sum = k == 0 ? acc : info_sum + acc;
-  }
-  const float info_den = clamp_min(info_sum, 1e-12f);
-  for (int k = 0; k < K; ++k) {
-    ex_vote[k] = voter[k] && !agree[k][best];
-    const bool ex_err = voter[k] && (nk[k] < kErrMinorityCap * n_total) && (err_n[k] > err_thr);
-    excluded[k] = (ex_vote[k] && majority_ok) || ex_err;
-    info_share[k] = info[k] / info_den;
-    const float pix_share = nk[k] / n_total;
-    dominant[k] = voter[k] && (info_share[k] > 2.0f * clamp_min(pix_share, 1e-6f));
-    others[k] = voter[k] && !excluded[k] && !dominant[k];
-    minority[k] = nk[k] < kMinorityCap * n_total;
-  }
-  const float others_med = nanmedian(err_n, others, K);
-  float hostage_sum = 0.f;
-  for (int k = 0; k < K; ++k) {
-    hostage[k] = dominant[k] && enough && minority[k] &&
-                 (others_med > 2.0f * clamp_min(err_n[k], 1e-3f)) && (others_med > 0.35f);
-    const float hf = hostage[k] ? 1.f : 0.f;
-    hostage_sum = k == 0 ? hf : hostage_sum + hf;
-  }
-  if (hostage_sum > 0.5f)
-    for (int k = 0; k < K; ++k) excluded[k] = ex_vote[k] && majority_ok;
-
-  // decide.
-  const float persist1 = static_cast<float>(p.persist - 1), persist = static_cast<float>(p.persist);
-  float ex_f[kMaxK], gate[kMaxK], persistent[kMaxK], hostage_p[kMaxK];
-  float frac_sum = 0.f, hp_sum = 0.f;
-  for (int k = 0; k < K; ++k) {
-    ex_f[k] = excluded[k] ? 1.f : 0.f;
-    gate[k] = hist[k] >= persist1 ? 1.f : 0.f;
-    persistent[k] = ex_f[k] * gate[k];
-    hostage_p[k] = (hostage[k] ? 1.f : 0.f) * gate[k];
-    const float pn = persistent[k] * nk[k];
-    frac_sum = k == 0 ? pn : frac_sum + pn;
-    hp_sum = k == 0 ? hostage_p[k] : hp_sum + hostage_p[k];
-  }
-  const float excluded_frac = frac_sum / n_total;
-  const bool triggered =
-      (excluded_frac > p.trigger_frac) && (excluded_frac < p.max_frac) && majority_ok;
-  const bool rescue = hp_sum > 0.5f;
-  const bool act = triggered || rescue;
-  float member_d[kMaxK];
-  float excl_sum = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float recent = hist[k] >= persist ? 1.f : 0.f;
-    const float ex = rescue ? tmax(tmax(persistent[k], hostage_p[k]), recent) : persistent[k];
-    member_d[k] = act ? 1.0f - ex : 1.f;
-    const float en = ex * nk[k];
-    excl_sum = k == 0 ? en : excl_sum + en;
-  }
-  const float frac_out = act ? excl_sum / n_total : 0.f;
-
-  // The vote's bookkeeping (tracking/tracker.py).
-  const float* member = state;
-  const float* flags_any = state + K;
-  const float* probe_cand = state + 3 * K;
-  const float* excl_any = state + 4 * K;
-  float* o = state_out;
-  float ex_sum = 0.f, changed = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float m2 = member[k] * member_d[k];
-    o[k] = m2;
-    o[K + k] = tmax(flags_any[k], tmax(ex_f[k], hostage[k] ? 1.f : 0.f));
-    o[2 * K + k] = nk[k];
-    o[3 * K + k] = probe_cand[k];
-    o[4 * K + k] = excl_any[k];
-    ex_sum = k == 0 ? ex_f[k] : ex_sum + ex_f[k];
-    const float ch = m2 < member[k] ? 1.f : 0.f;
-    changed = k == 0 ? ch : changed + ch;
-  }
-  float probe_fire = state[5 * K];
-  if (p.attack_probe) {
-    // n_total is tot_k: the same clamped sum.
-    float pool_sum = 0.f, best_d = 0.f;
-    int arg = 0;
-    for (int k = 0; k < K; ++k) {
-      const bool pool = (nk[k] >= p.min_frac * n_total) && (ex_f[k] < 0.5f) &&
-                        (nk[k] < kMinorityCap * n_total);
-      const float pf = pool ? 1.f : 0.f;
-      pool_sum = k == 0 ? pf : pool_sum + pf;
-      const float dens = pool ? info_share[k] / clamp_min(nk[k] / n_total, 1e-6f) : -1.f;
-      if (k == 0 || dens > best_d) {
-        arg = k;
-        best_d = dens;
-      }
-    }
-    const bool fire = (ex_sum > 0.5f) && majority_ok && (pool_sum > 0.5f);
-    for (int k = 0; k < K; ++k) {
-      if (fire) o[3 * K + k] = k == arg ? 1.f : 0.f;
-      o[4 * K + k] = tmax(excl_any[k], ex_f[k]);
-    }
-    probe_fire = tmax(probe_fire, fire ? 1.f : 0.f);
-  }
-  o[5 * K] = probe_fire;
-  o[5 * K + 1] = tmax(state[5 * K + 1], frac_out);
-  o[5 * K + 2] = tmax(state[5 * K + 2], rescue ? 1.f : 0.f);
-  *go = (act && changed > 0.5f && !rescue) ? 1 : 0;
-
-  for (int k = 0; k < K; ++k) {
-    for (int i = 0; i < 6; ++i) diag[k * 6 + i] = delta[k][i];
-    diag[6 * K + k] = ex_f[k];
-    diag[7 * K + k] = hostage[k] ? 1.f : 0.f;
-    diag[8 * K + k] = (dominant[k] && minority[k]) ? 1.f : 0.f;
-    diag[9 * K + k] = info_share[k];
-    diag[10 * K + k] = member_d[k];
-  }
-  diag[11 * K] = majority_ok ? 1.f : 0.f;
-  diag[11 * K + 1] = act ? 1.f : 0.f;
-  diag[11 * K + 2] = rescue ? 1.f : 0.f;
-  diag[11 * K + 3] = frac_out;
+  strata_deltas(s, K, delta, diag);
+  Strata a;
+  if (tail) a = strata_prefix(s, p, bscale, hist, state, lane);
+  __syncthreads();
+  agreement(s, delta, K, p.tol * bscale, rows);
+  __syncthreads();
+  if (tail) vote_finish(a, rows, p, state_out, go, diag, lane);
 }
 
 }  // namespace

@@ -11,6 +11,7 @@ every frame; and the port's own runs of that clip, of a rigid clip and of
 """
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -135,6 +136,43 @@ def test_analyze_decide_random_match_jax(seed, even, agree):
         assert voters % 2 == 0  # the median of an even count averages two
     if agree:
         assert t.majority_ok and not t.excluded.any() and not t.deltas.any()
+
+
+@pytest.mark.parametrize("name", chip_smoke.CONSENSUS_EDGE_CPU)
+def test_vote_plain_edge_cases_match_jax(name):
+    """The vote's edge cases (``chip_smoke.consensus_edge_sums``: K 1, 5,
+    11 and 16, a stratum with no pixel, tied error medians with +0 and -0
+    among them), on which the card holds the vote kernel to ``vote_plain``
+    bit for bit: ``analyze`` / ``decide`` and ``vote_plain``'s decision
+    words against the JAX package, with the assertions and tolerances of
+    test_analyze_decide_random_match_jax. Both packages get the sums as
+    the vote sees them (upper triangles, ``unpack_stratified``)."""
+    packed = torch.from_numpy(chip_smoke.pack_sums(*chip_smoke.consensus_edge_sums(name)[:5]))
+    prev = chip_smoke.consensus_edge_sums(name)[5]
+    sums = tuple(x.numpy() for x in tgn.unpack_stratified(packed)) + (prev,)
+    K = packed.shape[0]
+    p = tcons.VoteParams(0.4, 0.03, 4.0, 1.0, 0.03, 0.35, 3, True)
+    for bscale in (1.0, 1.7):
+        j, t, jd, td = _analyze_both(sums, bscale=bscale)
+        _same_verdict(j, t, jd, td, f"{name} bscale {bscale}")
+        state = tcons.VoteState.initial(torch.ones(K))
+        _, _, diag = tcons.vote_plain(packed, _tt(bscale), _tt(prev), state, p)
+        d = tcons.VoteDiag.split(diag, K)
+        vt = SimpleNamespace(excluded=d.excluded, hostage=d.hostage, dominant=d.dominant,
+                             majority_ok=bool(d.majority_ok), deltas=d.deltas,
+                             info_share=d.info_share)
+        vd = SimpleNamespace(member=d.member, triggered=bool(d.triggered),
+                             rescue=bool(d.rescue), excluded_frac=d.excluded_frac)
+        _same_verdict(j, vt, jd, vd, f"{name} bscale {bscale}, vote_plain")
+    nk, ek = sums[2], sums[4]
+    voter = nk >= 0.03 * nk.sum()
+    if name.startswith("k"):
+        assert K == int(name[1:])
+    elif name == "zero_pixels":
+        assert nk[2] == 0.0 and not voter[2] and not d.deltas[2].any()
+    elif name == "tied_medians":
+        err = ek[voter] / np.maximum(nk[voter], 1.0)
+        assert np.unique(err).size < err.size and np.signbit(err[err == 0.0]).any()
 
 
 def test_nanmedian_takes_the_mean_of_the_two_middle_values():

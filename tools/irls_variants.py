@@ -33,8 +33,24 @@ this file and ``chip_smoke.py`` into it), it times that commit's design.
 
     python3 tools/irls_variants.py --stratified
 
-times the stratified kernel's variants alone. Every row gives the
-profiler's device time and the CUDA events' (calls back to back).
+times the stratified kernel's variants alone.
+
+    python3 tools/irls_variants.py --vote
+
+times the consensus vote kernel's variants alone, at the vote's own layout
+(VGA L2, K 6, ``chip_smoke.phase_consensus_vote``'s timed arguments):
+without the eigensolve (each stratum's delta taken from its normalised b),
+with one Jacobi sweep in place of ten, without the flow metric (every
+stratum agreeing only with itself), without the vote's tail (the vote,
+the medians, ``decide`` and the bookkeeping); for each it prints what
+``-Xptxas=-v`` says of the vote kernel (registers, stack frame, spills),
+and then the device time of ``torch.linalg.eigh`` on a (6, 6, 6) float64
+batch, a yardstick for the eigensolve alone. The vote's design is read
+from the sources as for the stratified kernel: PR 13's one block of 576
+threads (36 a stratum, shared memory and block barriers, thread 0's tail)
+or the warp design (a group of 8 lanes a stratum, registers and shuffles,
+a one-warp tail). Every row gives the profiler's device time and the CUDA
+events' (calls back to back).
 """
 
 from __future__ import annotations
@@ -245,9 +261,55 @@ STRATIFIED_CLUSTER = {
 }
 
 
+# --- the consensus vote kernel ---------------------------------------------
+# PR 13's design: one block of 576 threads, 36 per stratum for its Jacobi
+# eigensolve in shared memory (three block barriers a round), one thread
+# per stratum pair for the flow metric, thread 0 for the rest.
+VOTE_BLOCK_MARK = ("consensus_vote.cu", "constexpr int kThreads = kMaxK * 36;")
+VOTE_BLOCK = {
+    "vote without the eigensolve": [
+        ("consensus_vote.cu", "  strata_deltas(s, inv_n, K, delta);\n",
+         "  if (t < K * 6) delta[t / 6][t % 6] = s[(t / 6) * kCols + 21 + t % 6] * inv_n[t / 6];\n"
+         "  __syncthreads();\n")],
+    "vote with 1 Jacobi sweep": [
+        ("consensus_vote.cu", "constexpr int kSweeps = 10;", "constexpr int kSweeps = 1;")],
+    "vote without the flow metric": [
+        ("consensus_vote.cu", "  if (t < K * K) {\n    const int j = t / K, k = t % K;\n",
+         "  if (t < K * K) agree[t / K][t % K] = t / K == t % K;\n"
+         "  if (t < 0) {\n    const int j = t / K, k = t % K;\n")],
+    "vote without the tail": [
+        ("consensus_vote.cu", "  if (t != 0) return;\n", "  if (t != 0 || K > 0) return;\n")],
+}
+# The warp design: a group of 8 lanes a stratum for its eigensolve in
+# registers and shuffles, one stratum pair a thread for the flow metric
+# (ballots into row bitmasks), the last warp for the rest.
+VOTE_WARP = {
+    "vote without the eigensolve": [
+        ("consensus_vote.cu", "  strata_deltas(s, K, delta, diag);\n",
+         "  if (threadIdx.x < K * 6)\n"
+         "    delta[threadIdx.x / 6][threadIdx.x % 6] =\n"
+         "        s[(threadIdx.x / 6) * kCols + 21 + threadIdx.x % 6] /\n"
+         "        clamp_min(s[(threadIdx.x / 6) * kCols + 27], 1.f);\n")],
+    "vote with 1 Jacobi sweep": VOTE_BLOCK["vote with 1 Jacobi sweep"],
+    "vote without the flow metric": [
+        ("consensus_vote.cu", "  agreement(s, delta, K, p.tol * bscale, rows);\n",
+         "  if (threadIdx.x < K) rows[threadIdx.x] = 1u << threadIdx.x;\n")],
+    "vote without the tail": [
+        ("consensus_vote.cu",
+         "  if (tail) a = strata_prefix(s, p, bscale, hist, state, lane);\n", ""),
+        ("consensus_vote.cu",
+         "  if (tail) vote_finish(a, rows, p, state_out, go, diag, lane);\n", "")],
+}
+
+
 def _design() -> dict:
     f, mark = TWO_LAUNCH_MARK
     return TWO_LAUNCH if mark in (SRC / f).read_text() else ONE_LAUNCH
+
+
+def _vote_design() -> dict:
+    f, mark = VOTE_BLOCK_MARK
+    return VOTE_BLOCK if mark in (SRC / f).read_text() else VOTE_WARP
 
 
 def _stratified_design() -> dict:
@@ -261,9 +323,13 @@ def _variant_dir(name: str) -> Path:
 
 def build_all(variants: dict) -> dict:
     """Apply each variant's substitutions to its own copy of csrc/, start
-    every nvcc at once, then link one library per variant."""
+    every nvcc at once, then link one library per variant. A variant that
+    changes only ``.cu`` files compiles those and links the shipped
+    objects of the others ("shipped", the variant without substitutions,
+    must be in ``variants``). Each library's ``log`` holds its compilers'
+    output, source by source."""
     nvcc = _build._nvcc()
-    procs = []
+    procs, own = [], {}
     for name, subs in variants.items():
         d = _variant_dir(name)
         shutil.rmtree(d, ignore_errors=True)
@@ -273,38 +339,83 @@ def build_all(variants: dict) -> dict:
             if old not in text:
                 raise RuntimeError(f"{name}: {f} no longer holds the text this variant removes")
             (d / f).write_text(text.replace(old, new))
-        for s in SOURCES:
-            procs.append((name, subprocess.Popen(
+        touched = {f for f, _, _ in subs}
+        own[name] = (SOURCES if not subs or any(not f.endswith(".cu") for f in touched)
+                     else tuple(s for s in SOURCES if s in touched))
+        for s in own[name]:
+            procs.append((name, s, subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(d / f"{s}.o"), str(d / s)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for name, proc in procs:
+    logs = {name: "" for name in variants}
+    for name, s, proc in procs:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
+        logs[name] += f"[{s}]\n{log}"
     libs = {}
+    shipped = _variant_dir("shipped")
     for name in variants:
         d = _variant_dir(name)
         so = d / "lib.so"
+        objs = [(d if s in own[name] else shipped) / f"{s}.o" for s in SOURCES]
         subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(so),
-                        *(str(d / f"{s}.o") for s in SOURCES)], check=True, capture_output=True)
-        libs[name] = _build.Library(so, "", 0.0)
+                        *map(str, objs)], check=True, capture_output=True)
+        libs[name] = _build.Library(so, logs[name], 0.0)
     return libs
+
+
+def _ptxas_lines(log: str, source: str) -> list:
+    """What ptxas printed of ``source``'s kernels: the stack, spill and
+    register lines."""
+    part = log.split(f"[{source}]\n", 1)
+    if len(part) < 2:
+        return []
+    text = part[1].split("\n[", 1)[0]
+    return [l.strip() for l in text.splitlines() if "stack frame" in l or "registers" in l]
+
+
+def eigh_yardstick() -> None:
+    """torch.linalg.eigh on the vote's (K 6) batch of 6x6 float64 normal
+    matrices: the library's time for the eigensolve alone (it checks its
+    status on the host, so only the profiler's device time and the per-call
+    time with its synchronisation are taken)."""
+    torch = cs.torch
+    g = torch.Generator().manual_seed(0)
+    q, _ = torch.linalg.qr(torch.randn((6, 6, 6), generator=g, dtype=torch.float64))
+    ev = torch.exp(torch.empty((6, 6), dtype=torch.float64).uniform_(4.6, 11.5, generator=g))
+    a = (q * ev[:, None, :]) @ q.transpose(1, 2)
+    a = ((a + a.transpose(1, 2)) / 2).cuda()
+    prof = cs._device_ms(lambda: torch.linalg.eigh(a), reps=50) * 1e3
+    call = cs._time_ms(lambda: torch.linalg.eigh(a)) * 1e3
+    print(f"[variants] torch.linalg.eigh (6, 6, 6) float64: device {prof:.2f} us per call "
+          f"(profiler), {call:.2f} us per call with its host synchronisation (CUDA events)")
 
 
 def main() -> int:
     stratified_only = "--stratified" in sys.argv[1:]
+    vote_only = "--vote" in sys.argv[1:]
     if not cs.torch.cuda.is_available():
         print("irls_variants: needs a CUDA card", file=sys.stderr)
         return 2
     cs.phase_device()
     OUT.mkdir(parents=True, exist_ok=True)
-    variants = {"shipped": [], **({} if stratified_only else _design()), **_stratified_design()}
+    if vote_only:
+        variants = {"shipped": [], **_vote_design()}
+    else:
+        variants = {"shipped": [], **({} if stratified_only else _design()),
+                    **_stratified_design()}
     libs = build_all(variants)
     _build._LIBRARY = libs["shipped"]
     timing = []
-    if not stratified_only:
-        timing += cs.phase_kernels(cs.slice_config())[2] + cs.phase_ic_kernels()[2]
-    timing += cs.phase_stratified()[2]
+    if vote_only:
+        for name, lib in libs.items():
+            print(f"[variants] ptxas, {name}: " + " | ".join(_ptxas_lines(lib.log,
+                                                                         "consensus_vote.cu")))
+        timing += cs.phase_consensus_vote(cs.phase_stratified()[3])[2]
+    else:
+        if not stratified_only:
+            timing += cs.phase_kernels(cs.slice_config())[2] + cs.phase_ic_kernels()[2]
+        timing += cs.phase_stratified()[2]
     print("[variants] device us per call, profiler (50 calls) / CUDA events (50 calls back to "
           "back): " + " | ".join(f"{key} {level}" for key, level, *_ in timing))
     for rnd in range(2):
@@ -316,6 +427,8 @@ def main() -> int:
                 ev = cs._event_device_ms(lambda: kernel(args)) * 1e3
                 row.append(f"{prof:6.2f}/{ev:6.2f}")
             print(f"[variants] round {rnd} {name:42s} " + " ".join(row))
+    if vote_only:
+        eigh_yardstick()
     return 0
 
 
