@@ -31,10 +31,16 @@ otherwise. Phases, each printing its own lines:
    IC lagged step and the IC exact step at sigma_iters 2 and 3 (whose grid
    barriers a block leaving alone would deadlock): a previous step just
    under the tolerance leaves the output equal to it bit for bit and the
-   workspace as found, one just over runs; then the solve alone
-   (``irls_solve_step``, csrc/irls_solve.cu, the row-sharded tracker's
+   workspace as found, one just over runs; SpmdTracker's two evaluations,
+   ``ic_result`` (the lagged IC launch's result vector) against the plain
+   lagged pass and ``ic_sigma_stats`` against ``sigma_stats_plain``, at
+   its layouts (VGA L0 whole and its 240- and 120-row bands); then the
+   solve alone
+   (``irls_solve_step``, csrc/irls_solve.cu, the row-sharded trackers'
    end of an iteration) against ``ic_update`` on a tracked, a few-valid and
-   a non-positive-definite result, the split step (result-only launch,
+   a non-positive-definite result, the last two again with ``min_valid``
+   -inf (SpmdTracker's rule: a few-valid step is taken), the split step
+   (result-only launch,
    ``allreduce_irls`` over one rank, the solve) bit-equal to the fused
    ``esm_irls_step`` at every level's layout, and its early exit; then the
    consensus vote kernel (``csrc/consensus_vote.cu``) against its plain
@@ -44,7 +50,11 @@ otherwise. Phases, each printing its own lines:
    state, rerun word and decision words equal, deltas within 1e-6 of the
    largest; and the predicate word ``go`` of the ESM step at every level
    and of fusion at 480x640 and 641x481: held (0) the output is ``hold`` /
-   the input planes bit for bit, 1 the launch without the word;
+   the input planes bit for bit, 1 the launch without the word; and the
+   fusion kernel against the numpy oracle (``reference_cpu/fusion.py``) at
+   tests/test_fusion.py's rules on a noisy VGA pair: ``fuse_inverse_depth``
+   against ``fuse``, ``fuse_frame`` with growth on a hole-punched keyframe
+   against ``fuse_grow``;
 4. main paths: SlamSystem over synthetic VGA sequences with known ground
    truth, five times, and a sixth over a closed loop (item 6): the ESM configuration with the consensus off, the
    default configuration (``SlamConfig()``, back end off: ESM with the
@@ -189,6 +199,16 @@ otherwise. Phases, each printing its own lines:
    launch counts per rank (one solve launch per IRLS iteration); ms per
    tracked pair beside ``Tracker``'s and the all-reduces per pair. At 1
    and 2 ranks ``shard_reloc_batch`` equals ``score_pairs`` pair by pair.
+   In the same ranks, ``SpmdTracker`` (the JAX package's single-level IC
+   tracker) on the VGA pair at level 0 (480 rows in bands of 480 / ranks),
+   25 iterations from a perturbed ground truth: every rank the same bits,
+   per rank exactly 25 launches each of ``ic_sigma_stats``, ``ic_normal_eq``
+   (``ic_result``) and ``irls_solve_step`` and 75 all-reduces, 1 rank
+   within 5e-4 of the same run on the CPU (one gloo rank, the plain
+   versions), 2 and 4 ranks within 5e-4 of 1 rank (T; the scales s2i and
+   s2x within rtol 1e-4), the error to ground truth under max(2 x the CPU
+   run's, 3e-3 / 5: the test's floor scaled as the twist is), no host read
+   under NCCL (``set_sync_debug_mode("error")``); ms per iteration.
    A rank that fails ends the run with its exception.
 
 Phases 4, 8-11, [preset] and 13-17 each drive the main path with the launch
@@ -231,11 +251,14 @@ from rgbid_tpu_torch.mapping import fusion
 from rgbid_tpu_torch.mapping.export import _quat_from_R
 from rgbid_tpu_torch.ops import _build, gauss_newton, kernels
 from rgbid_tpu_torch.ops.gauss_newton import ic_update
-from rgbid_tpu_torch.reference_cpu import odometry
+from rgbid_tpu_torch.ops.image import build_pyramid
+from rgbid_tpu_torch.ops.warp import backproject_grid
+from rgbid_tpu_torch.reference_cpu import fusion as fusion_ref
+from rgbid_tpu_torch.reference_cpu import odometry, se3_np
 from rgbid_tpu_torch.tracking import consensus
 from rgbid_tpu_torch.tracking.step import ProcessFrame, decode_frame, frame_pyramid, gray_from_rgb
 from rgbid_tpu_torch.tracking.step import pack_frame
-from rgbid_tpu_torch.parallel import ShardedTracker, make_mesh, shard_reloc_batch
+from rgbid_tpu_torch.parallel import ShardedTracker, SpmdTracker, make_mesh, shard_reloc_batch
 from rgbid_tpu_torch.parallel.launch import run_ranks
 from rgbid_tpu_torch.tracking.tracker import Tracker, template_level
 from rgbid_tpu_torch.utils import live_view, snapshot
@@ -750,6 +773,17 @@ def _few_valid(mask: torch.Tensor, keep: int = 80) -> torch.Tensor:
     few = torch.zeros_like(mask)
     idx = mask.flatten().nonzero()[:keep, 0]
     few.view(-1)[idx] = 1.0
+    return few
+
+
+def _spread_valid(mask: torch.Tensor, keep: int = 90) -> torch.Tensor:
+    """The template mask with ``keep`` of its valid pixels left, evenly
+    spaced over them (a well-posed few-valid system: ``_few_valid``'s
+    first pixels lie in a few rows, and their 6x6 system is near
+    singular)."""
+    few = torch.zeros_like(mask)
+    idx = mask.flatten().nonzero()[:, 0]
+    few.view(-1)[idx[torch.linspace(0, len(idx) - 1, keep, device=idx.device).long()]] = 1.0
     return few
 
 
@@ -1424,6 +1458,50 @@ def phase_ic_kernels():
               f"bit-identical {same} {'OK' if good else 'FAIL'}")
 
     l0 = level_args(vga, 0)
+    # SpmdTracker's two launches, ic_sigma_stats and ic_result, at its
+    # layouts: the whole VGA L0 template (one rank), the second of two
+    # bands (rows 240-479) and the third of four (rows 240-359), each
+    # backprojected with its global rows, from its start pose.
+    planes, _, T_start = spmd_ic_pair()
+    ki, kx, km, kj, ci, cx, cm = (t.cuda() for t in planes)
+    T_start = T_start.cuda()
+    tail_r = (tc.student_t_nu, s2i, s2x, True, tc.gate_sigmas)
+    whole = (T_start, ki, backproject_grid(kx, TUM_FR1), km, kj, ci, cx, cm, TUM_FR1) + tail_r
+
+    def band(b0, b1):
+        return (T_start, ki[b0:b1].contiguous(),
+                backproject_grid(kx[b0:b1].contiguous(), TUM_FR1, row_offset=b0),
+                km[b0:b1].contiguous(), kj[:, b0:b1].contiguous(), ci, cx, cm,
+                TUM_FR1) + tail_r
+
+    for label, r_args in (("VGA L0 480x640", whole), ("VGA L0 band rows 240-479", band(240, 480)),
+                          ("VGA L0 band rows 240-359", band(240, 360))):
+        kr = kernels.unpack_result(kernels.ic_result(*r_args))
+        pr = gauss_newton.normal_eq_plain(*r_args, True)
+        # The scale step alone on the same inputs, under the rule above.
+        sig_args = r_args[:4] + r_args[5:12] + (True,)
+        kss = kernels.ic_sigma_stats(*sig_args)
+        kss2 = kernels.ic_sigma_stats(*sig_args)
+        ps = gauss_newton.sigma_stats_plain(*sig_args)
+        torch.cuda.synchronize()
+        eH, sH = _scaled_err(kr.H, pr.H)
+        eb, sb = _scaled_err(kr.b, pr.b)
+        exact = bool(kr.n_valid == pr.n_valid) and bool(kr.inlier_frac == pr.inlier_frac)
+        scal = max(_rel(kr.error, pr.error), _rel(kr.sigma2_int, pr.sigma2_int),
+                   _rel(kr.sigma2_xi, pr.sigma2_xi))
+        s_rel = max(_rel(kss.swi, ps.swi), _rel(kss.swx, ps.swx),
+                    _rel(kss.sigma2_int, ps.sigma2_int), _rel(kss.sigma2_xi, ps.sigma2_xi))
+        s_exact = (bool(kss.n == ps.n) and bool(kss.n == kr.n_valid)
+                   and all(torch.equal(x, y) for x, y in zip(kss, kss2)))
+        good = sH <= 1.0 and sb <= 1.0 and exact and scal <= 1e-4 and s_rel <= 1e-5 and s_exact
+        ok &= good
+        n_abs, n_scaled = max(n_abs, eH, eb), max(n_scaled, sH, sb)
+        s_abs = max(s_abs, *(float((x - y).abs()) for x, y in zip(kss, ps)))
+        print(f"[kernels] ic_result {label} (lagged, the result vector, f32 field): n_valid "
+              f"{int(kr.n_valid)} (plain {int(pr.n_valid)}) H max|d| {eH:.3e} ({sH:.2f} of tol) "
+              f"b max|d| {eb:.3e} ({sb:.2f} of tol) err/sigma rel {scal:.1e} (tol 1e-4); "
+              f"ic_sigma_stats on the same inputs: sums/scales rel {s_rel:.1e} (tol 1e-5) count "
+              f"exact and rerun bit-identical {s_exact} {'OK' if good else 'FAIL'}")
     few = level_args(vga, 0, _few_valid(l0[3]))
     tail = (s2i, s2x, 1, True, tc.gate_sigmas)
     ok &= _fused_extras("ic L0 lagged", step, chain,
@@ -1456,6 +1534,13 @@ def phase_ic_kernels():
         ("ic_normal", "L0 exact", step, lambda a: chain(a)[1:], exact,
          (FLOPS_PER_PIXEL["ic_normal"] + tail[2] * FLOPS_PER_PIXEL["ic_sigma"]) * n0,
          shape + f", sigma_iters {tail[2]}", exact),
+        # ic_result at SpmdTracker's one-rank layout: the lagged launch at
+        # damping 0, its result part read.
+        ("ic_normal", "ic_result L0 480x640", lambda a: kernels.ic_result(*a),
+         lambda a: kernels.pack_result(gauss_newton.normal_eq_plain(*a, True)), whole,
+         FLOPS_PER_PIXEL["ic_normal"] * whole[1].numel(),
+         f"template {tuple(whole[1].shape)}, field {tuple(whole[4].shape)}, planes "
+         f"{tuple(whole[5].shape)}", whole[:12]),
         ("ic_normal", "L0", step, lambda a: chain(a)[1:], lagged,
          FLOPS_PER_PIXEL["ic_normal"] * n0, shape, lagged),
         ("ic_sigma", "L0", lambda a: kernels.ic_sigma_stats(*a),
@@ -1463,6 +1548,14 @@ def phase_ic_kernels():
          FLOPS_PER_PIXEL["ic_sigma"] * n0, f"template {tuple(l0[1].shape)}, planes "
          f"{tuple(l0[5].shape)}", sigma_args),
     ]
+    # The scale step alone at SpmdTracker's one-rank layout (its standalone
+    # launches on the main path).
+    ws_args = whole[:4] + whole[5:12] + (True,)
+    timing.append(("ic_sigma", "L0 480x640", lambda a: kernels.ic_sigma_stats(*a),
+                   lambda a: gauss_newton.sigma_stats_plain(*a), ws_args,
+                   FLOPS_PER_PIXEL["ic_sigma"] * whole[1].numel(),
+                   f"template {tuple(whole[1].shape)}, planes {tuple(whole[5].shape)}",
+                   ws_args))
     return ok, records, timing
 
 
@@ -1671,20 +1764,21 @@ def phase_early_exit():
     return ok, timing
 
 
-def _plain_update(T, res, damping: float):
+def _plain_update(T, res, damping: float, min_valid: float = 100.0):
     """The plain end of an IRLS iteration: ``ic_update`` on an evaluation,
     as the step its launch would write."""
-    return kernels._irls_step(kernels._plain_out(T, res, damping))
+    return kernels._irls_step(kernels._plain_out(T, res, damping, min_valid))
 
 
-def _solve_case(label: str, T, result: torch.Tensor, damping: float, moves: bool):
+def _solve_case(label: str, T, result: torch.Tensor, damping: float, moves: bool,
+                min_valid: float = 100.0):
     """``irls_solve_step`` against its plain version (``ic_update`` on the
-    same 48 floats): the result copied bit for bit, T' and delta within
-    1e-6, delta zero where the update must be suppressed (``moves``
-    False), and a rerun bit-identical."""
-    k = kernels.irls_solve_step(T, result, damping)
-    k2 = kernels.irls_solve_step(T, result, damping)
-    p = _plain_update(T, kernels.unpack_result(result), damping)
+    same 48 floats, the same ``min_valid``): the result copied bit for bit,
+    T' and delta within 1e-6, delta zero where the update must be
+    suppressed (``moves`` False), and a rerun bit-identical."""
+    k = kernels.irls_solve_step(T, result, damping, min_valid=min_valid)
+    k2 = kernels.irls_solve_step(T, result, damping, min_valid=min_valid)
+    p = _plain_update(T, kernels.unpack_result(result), damping, min_valid)
     torch.cuda.synchronize()
     copied = bool(torch.equal(kernels.pack_result(k.result), result))
     dT, dd = _step_errs(k, p.T, p.delta)
@@ -1726,9 +1820,19 @@ def phase_solve(records):
     not_pd = tracked.clone()
     not_pd[0] = -5.0  # H[0, 0]: the Cholesky factorization fails
     ok, err = True, 0.0
-    for label, res, moves in (("tracked L0", tracked, True), ("few-valid L0", few, False),
-                              ("H not positive definite", not_pd, False)):
-        good, e = _solve_case(label, T, res, damping, moves)
+    inf = float("-inf")
+    # min_valid -inf (the IC SPMD tracker's rule): a few-valid step is taken
+    # (90 pixels spread over the template: the first 80 make a system too
+    # ill-conditioned, cond ~1e8, for two float32 solves to agree to 1e-6),
+    # the failed factorization still holds.
+    spread = kernels.esm_result(*level_args(0, _spread_valid(l0[3])))
+    for label, res, moves, mv in (("tracked L0", tracked, True, 100.0),
+                                  ("few-valid L0", few, False, 100.0),
+                                  ("H not positive definite", not_pd, False, 100.0),
+                                  ("few-valid L0 spread, min_valid -inf", spread, True, inf),
+                                  ("H not positive definite, min_valid -inf", not_pd, False,
+                                   inf)):
+        good, e = _solve_case(label, T, res, damping, moves, mv)
         ok &= good
         err = max(err, e)
     split_eq = []
@@ -1756,6 +1860,108 @@ def phase_solve(records):
                (T, tracked), float(SOLVE_FLOPS), "result (48), T (16) -> out (70)", (T, tracked))]
     print(f"[kernels] irls_solve: {'OK' if ok else 'FAIL'}")
     return ok, timing
+
+
+# tests/test_fusion.py's pose covariance and inverse-depth noise.
+ORACLE_COV = np.diag([1e-6, 1e-6, 1e-6, 1e-7, 1e-7, 1e-7])
+ORACLE_XI_NOISE = 0.005
+
+
+def punch_holes(depth_u16: np.ndarray, frac: float = 0.25, seed: int = 3) -> np.ndarray:
+    """Blob dropout in a u16 depth image (invalid = 0), like the gauntlet's
+    depth_holes scenario (tests/test_fusion.py's ``_punch_holes``)."""
+    rng = np.random.default_rng(seed)
+    h, w = depth_u16.shape
+    out = depth_u16.copy()
+    killed = 0
+    while killed < frac * h * w:
+        cy, cx = rng.integers(0, h), rng.integers(0, w)
+        r = rng.integers(5, 25)
+        yy, xx = np.ogrid[:h, :w]
+        blob = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        killed += blob.sum()
+        out[blob] = 0
+    return out
+
+
+def _share(a: np.ndarray) -> float:
+    return float(a.mean()) if a.size else 1.0
+
+
+def phase_fusion_oracle():
+    """The fusion kernel on the card against the numpy oracle
+    (``reference_cpu/fusion.py``), at tests/test_fusion.py's rules, on a
+    VGA pair with inverse-depth noise: ``fuse_inverse_depth`` (growth off,
+    no floor) against ``fuse`` with the test's covariance, then
+    ``fuse_frame`` (growth on, the pose-noise floor) on a hole-punched
+    keyframe against ``fuse_grow`` given the same floor and the plain
+    ``hole_guess`` of the same pyramid. The fused (and claimed) sets agree
+    on more than 99.9% of the pixels, values within 5e-4 where both fused,
+    variances rtol 2e-2 (Kalman step), hit counts on more than 99.9%,
+    n_fused within 2e-3. Returns ok."""
+    cfg = default_config()
+    fcfg = cfg.fusion
+    scene = make_scene(0)
+    rng = np.random.default_rng(7)
+    gt = camera_path(N_FRAMES)
+    f0 = render(scene, TUM_FR1, gt[0], rng, ORACLE_XI_NOISE)
+    f1 = render(scene, TUM_FR1, gt[3], rng, ORACLE_XI_NOISE)
+    T_ck = np.linalg.inv(gt[3]) @ gt[0]
+    kf_xi, kf_mask = odometry.inverse_depth_from_u16(f0[1])
+    cur_xi, cur_mask = odometry.inverse_depth_from_u16(f1[1])
+    kf_var = np.full_like(kf_xi, fcfg.sensor_sigma_xi**2)
+
+    def cu(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    r_xi, r_var, _, r_n = fusion_ref.fuse(kf_xi, kf_var, kf_mask, cur_xi, cur_mask, T_ck,
+                                          ORACLE_COV, TUM_FR1, fcfg)
+    k = fusion.fuse_inverse_depth(cu(kf_xi), cu(kf_var), cu(kf_mask), cu(cur_xi), cu(cur_mask),
+                                  cu(T_ck), cu(ORACLE_COV), TUM_FR1, fcfg)
+    xi, var, n = k[0].cpu().numpy(), k[1].cpu().numpy(), float(k[3])
+    changed, changed_ref = xi != kf_xi, r_xi != kf_xi
+    agree = _share(changed == changed_ref)
+    both = changed & changed_ref
+    d_xi = float(np.abs(xi[both] - r_xi[both]).max())
+    var_ok = np.allclose(var[both], r_var[both], rtol=2e-2, atol=1e-9)
+    n_rel = abs(n - r_n) / max(r_n, 1)
+    ok = agree > 0.999 and d_xi <= 5e-4 and var_ok and n_rel < 2e-3 and r_n > 0.5 * kf_mask.sum()
+    print(f"[kernels] fusion oracle: fuse_inverse_depth on the card against reference_cpu "
+          f"fusion.fuse, VGA, xi noise {ORACLE_XI_NOISE}: fused sets agree on {agree:.5f} "
+          f"(> 0.999), xi max|d| where both fused {d_xi:.2e} (tol 5e-4), var within rtol 2e-2 "
+          f"{var_ok}, n_fused {n:.0f} (oracle {r_n}, rel {n_rel:.1e}, tol 2e-3) "
+          f"{'OK' if ok else 'FAIL'}")
+
+    # Growth: a keyframe with 25% of its depth punched out.
+    h_xi, h_mask = odometry.inverse_depth_from_u16(punch_holes(f0[1]))
+    hits = np.where(h_mask, fcfg.confirm_hits, 0.0).astype(np.float32)
+    xi_pyr, _ = build_pyramid(cu(h_xi), cu(h_mask), cfg.tracking.levels)
+    levels = [fusion._Level0(x) for x in xi_pyr]
+    k = fusion.fuse_frame(levels, cu(kf_var), cu(h_mask), cu(hits), cu(cur_xi), cu(cur_mask),
+                          cu(T_ck), cu(ORACLE_COV), TUM_FR1, fcfg)
+    guess, gmask = fusion.hole_guess([fusion._Level0(x.cpu()) for x in xi_pyr])
+    floor = fusion.pose_noise_floor(fcfg, "cpu").double().numpy()
+    r_xi, _, r_mask, r_hits, r_nf, r_nc = fusion_ref.fuse_grow(
+        h_xi, kf_var, h_mask, hits, cur_xi, cur_mask, T_ck, ORACLE_COV + floor, TUM_FR1, fcfg,
+        guess.numpy(), gmask.numpy())
+    xi, mask, g_hits = k[0].cpu().numpy(), k[2].cpu().numpy() > 0.5, k[3].cpu().numpy()
+    n = float(k[4])
+    mask_agree = _share(mask == r_mask)
+    claimed = mask & r_mask & ~h_mask
+    close = _share(np.abs(xi[claimed] - r_xi[claimed]) <= 5e-4)
+    hits_agree = _share(g_hits == r_hits)
+    n_rel = abs(n - r_nf) / max(r_nf, 1)
+    good = (r_nc > 1000 and mask_agree > 0.999 and close > 0.999 and hits_agree > 0.999
+            and n_rel < 2e-3)
+    ok &= good
+    print(f"[kernels] fusion oracle: fuse_frame (growth on, pose-noise floor) on the card "
+          f"against reference_cpu fusion.fuse_grow, VGA keyframe with 25% holes: claimed on "
+          f"both {int(claimed.sum())} (oracle's claims {r_nc}, > 1000), masks agree on "
+          f"{mask_agree:.5f}, claimed xi within 5e-4 on {close:.5f}, hits agree on "
+          f"{hits_agree:.5f} (each > 0.999), n_fused {n:.0f} (oracle {r_nf}, rel {n_rel:.1e}, "
+          f"tol 2e-3) "
+          f"{'OK' if good else 'FAIL'}")
+    return ok
 
 
 def pack_sums(Hk, bk, nk, Gk, ek) -> np.ndarray:
@@ -3782,6 +3988,17 @@ SPMD_RELOC_WORLDS = (1, 2)
 SPMD_REPS = 5
 SPMD_T_TOL = 5e-5  # tests/test_torch_parallel.py under the consensus
 SPMD_RELOC_PAIRS = ((0, 3), (3, 0), (0, 12))
+# SpmdTracker: the VGA pair at level 0 (480 = 8 x 60 rows), 25 iterations
+# from ground truth perturbed by a fifth of tests/test_parallel.py's 3 cm
+# twist: at VGA L0 the CPU run converges from it (to 0.68 mm of the log's
+# norm, 0.14 mm from ground truth itself) and not from the test's whole
+# twist.
+SPMD_IC_ITERS = 25
+SPMD_IC_TWIST = np.array([0.004, -0.003, 0.002, 0.0016, -0.0012, 0.002])
+SPMD_IC_TOL = 5e-4  # tests/test_parallel.py:98, 1 against 8 devices
+SPMD_IC_S2_RTOL = 1e-4  # tests/test_torch_spmd.py's scales against JAX
+# tests/test_parallel.py:75's 3e-3 floor, scaled as the twist is.
+SPMD_IC_GT = 3e-3 / 5
 
 
 def _counted_run(slam, frames):
@@ -3871,12 +4088,97 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _spmd_rank(rank: int, world: int, dev: torch.device, reloc_planes):
+def spmd_ic_pair():
+    """SpmdTracker's inputs, made on the card and returned on the CPU: the
+    VGA pair's level-0 keyframe planes and float32 IC field, the current
+    frame's planes, the ground-truth pose and the perturbed start."""
+    cfg = ic_config("lagged").override(**{"tracking.jac_dtype": "f32"})
+    kf, cur, T_gt, _ = _frame_pair(TUM_FR1, cfg)
+    k0, c0 = kf.levels[0], cur[0]
+    planes = tuple(t.cpu() for t in (k0.intensity, k0.xi, k0.mask, k0.jac, c0.intensity, c0.xi,
+                                     c0.mask))
+    T_gt = T_gt.cpu()
+    T0 = se3_np.exp(SPMD_IC_TWIST) @ T_gt.double().numpy()
+    return planes, T_gt, torch.from_numpy(T0.astype(np.float32))
+
+
+def _spmd_ic(mesh, dev: torch.device, ic_pair, reps: int) -> dict:
+    """SpmdTracker on this rank: with ``reps`` a warm-up first; then the
+    counted run (the launch counts zeroed just before and read just after;
+    under NCCL inside torch.cuda.set_sync_debug_mode("error"), so a host
+    read raises); then ``reps`` timed runs."""
+    import torch.distributed as dist
+
+    planes, _, T0 = ic_pair
+    args = tuple(t.to(dev) for t in planes) + (T0.to(dev),)
+    tr = SpmdTracker(mesh, TUM_FR1)
+    nccl = dist.get_backend() == "nccl"
+    if reps:
+        tr.track(*args, SPMD_IC_ITERS)
+        _sync(dev)
+    dist.barrier()
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
+    n0 = tr.allreduces
+    reads = None
+    if nccl:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = tr.track(*args, SPMD_IC_ITERS)
+        reads = 0 if nccl else None
+    except RuntimeError as e:  # a synchronizing operation under NCCL
+        if not nccl:
+            raise
+        reads = str(e).splitlines()[0]
+        res = None
+    finally:
+        if nccl:
+            torch.cuda.set_sync_debug_mode("default")
+    _sync(dev)
+    counts = {k: getattr(w, a) for k, (w, a) in COUNTERS.items()}
+    allreduces = tr.allreduces - n0
+    if res is None:
+        res = tr.track(*args, SPMD_IC_ITERS)
+    ms = []
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        tr.track(*args, SPMD_IC_ITERS)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3 / SPMD_IC_ITERS)
+    prof = _profile_track(tr, args) if reps and nccl else None
+    return dict(ic=res, ic_counts=counts, ic_allreduces=allreduces, ic_reads=reads,
+                ic_ms=float(np.median(ms)) if ms else None, ic_profile=prof)
+
+
+def _profile_track(tr, args) -> dict:
+    """torch.profiler over one track: device us and kernels per iteration,
+    and us per iteration of each kernel kind (the largest eight)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.track(*args, SPMD_IC_ITERS)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    n = SPMD_IC_ITERS
+    kinds = sorted(((e.key[:60], e.count / n, e.self_device_time_total / n) for e in evs),
+                   key=lambda k: -k[2])
+    return dict(us=sum(k[2] for k in kinds), kernels=sum(k[1] for k in kinds), kinds=kinds[:8])
+
+
+def _spmd_ic_rank(rank: int, world: int, dev: torch.device, ic_pair):
+    """SpmdTracker alone, counted and untimed: the CPU run of [spmd]."""
+    return _spmd_ic(make_mesh(world), dev, ic_pair, 0)
+
+
+def _spmd_rank(rank: int, world: int, dev: torch.device, reloc_planes, ic_pair):
     """One rank of [spmd] (run by ``run_ranks``): the VGA frame pair under
     ``SlamConfig()``'s tracking settings through ``ShardedTracker`` (the
     launch counts zeroed just before and read just after), the one-process
-    ``Tracker`` on the same inputs, both timed in turns, and with
-    ``reloc_planes`` the sharded scorer against ``score_pairs``."""
+    ``Tracker`` on the same inputs, both timed in turns, with
+    ``reloc_planes`` the sharded scorer against ``score_pairs``, then
+    SpmdTracker on ``ic_pair`` (``_spmd_ic``)."""
     import torch.distributed as dist
 
     cfg = default_config()
@@ -3916,6 +4218,7 @@ def _spmd_rank(rank: int, world: int, dev: torch.device, reloc_planes):
         scorer = RelocScorer(TUM_FR1, cfg, dev)
         out["reloc"] = (shard_reloc_batch(scorer, mesh, temps, curs),
                         scorer.score_pairs(temps, curs))
+    out.update(_spmd_ic(mesh, dev, ic_pair, SPMD_REPS))
     return out
 
 
@@ -3924,20 +4227,65 @@ def _same_result(a, b) -> bool:
                else np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
 
 
+def _pose_err(T: torch.Tensor, T_gt: torch.Tensor) -> float:
+    """The norm of se3.log(T_gt^-1 T), float64."""
+    D = se3_np.inv(T_gt.double().numpy()) @ T.double().numpy()
+    return float(np.linalg.norm(se3_np.log(D)))
+
+
+def _spmd_ic_checks(world: int, backend: str, outs, ref, cpu, T_gt) -> dict:
+    """SpmdTracker's checks at one world size: every rank the same bits,
+    exact launches and all-reduces per rank, T within SPMD_IC_TOL and the
+    scales within SPMD_IC_S2_RTOL of ``ref`` (the CPU run at 1 rank, else
+    the 1-rank run), the ground-truth bound from the CPU run ``cpu``, no
+    host read under NCCL."""
+    n = SPMD_IC_ITERS
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(ic_sigma_stats=n, ic_normal_eq=n, irls_solve=n)
+    res = outs[0]["ic"]
+    checks = {
+        "SpmdTracker ranks bit-identical": all(_same_result(o["ic"], res) for o in outs[1:]),
+        "SpmdTracker launches": all(o["ic_counts"] == want and o["ic_allreduces"] == 3 * n
+                                    for o in outs),
+        f"SpmdTracker within {SPMD_IC_TOL:g} of " + ("the CPU run" if world == 1 else "1 rank"):
+            float((res[0] - ref[0]).abs().max()) <= SPMD_IC_TOL,
+        f"SpmdTracker scales within rtol {SPMD_IC_S2_RTOL:g}":
+            all(_rel(res[i], ref[i]) <= SPMD_IC_S2_RTOL for i in (1, 2)),
+        "SpmdTracker ground truth": _pose_err(res[0], T_gt)
+        <= max(2 * _pose_err(cpu["ic"][0], T_gt), SPMD_IC_GT),
+    }
+    if backend == "nccl":
+        checks["SpmdTracker host reads 0"] = all(o["ic_reads"] == 0 for o in outs)
+    return checks
+
+
 def phase_spmd(smi: str):
-    """The row-sharded tracker and the sharded scorer across ranks (the
-    module docstring, item 17). Returns (ok, the ranks' launch counts)."""
+    """The row-sharded tracker, SpmdTracker and the sharded scorer across
+    ranks (the module docstring, item 17). Returns (ok, the ranks' launch
+    counts)."""
     cfg = default_config()
     frames, _ = make_sequence()
     level = RelocScorer(TUM_FR1, cfg, "cpu").level
     planes = {i: _host_planes(frames[i], cfg, level) for pair in SPMD_RELOC_PAIRS for i in pair}
     reloc = ([planes[i] for i, _ in SPMD_RELOC_PAIRS], [planes[j] for _, j in SPMD_RELOC_PAIRS])
+    ic_pair = spmd_ic_pair()
+    T_gt = ic_pair[1]
+    # The same run on the CPU: the plain versions over one gloo rank.
+    t0 = time.perf_counter()
+    cpu = run_ranks(_spmd_ic_rank, 1, "gloo", "cpu", ic_pair)[0]
+    cpu_s = time.perf_counter() - t0
+    print(f"[spmd] SpmdTracker on the CPU (1 gloo rank, the plain versions): VGA L0, "
+          f"{SPMD_IC_ITERS} iterations from {np.linalg.norm(SPMD_IC_TWIST):.2e} (the twist's "
+          f"norm) off ground truth: error {_pose_err(cpu['ic'][0], T_gt):.3e}, s2i "
+          f"{float(cpu['ic'][1]):.4e}, s2x {float(cpu['ic'][2]):.4e}; {cpu_s:.1f} s with the "
+          f"rank's start")
     total = dict.fromkeys(COUNTERS, 0)
     ok = True
+    one = None
     for world, backend, device in SPMD_WORLDS:
         t0 = time.perf_counter()
         outs = run_ranks(_spmd_rank, world, backend, device,
-                         reloc if world in SPMD_RELOC_WORLDS else None)
+                         reloc if world in SPMD_RELOC_WORLDS else None, ic_pair)
         wall = time.perf_counter() - t0
         r0 = outs[0]
         res, ref = r0["result"], r0["ref"]
@@ -3972,7 +4320,33 @@ def phase_spmd(smi: str):
             checks["shard_reloc_batch = score_pairs"] = all(
                 all(np.array_equal(a, b) for a, b in zip(*o["reloc"])) for o in outs)
         for k in COUNTERS:
-            total[k] += sum(o["counts"][k] for o in outs)
+            total[k] += sum(o["counts"][k] + o["ic_counts"][k] for o in outs)
+        ic = r0["ic"]
+        ref_ic = cpu["ic"] if world == 1 else one
+        ic_checks = _spmd_ic_checks(world, backend, outs, ref_ic, cpu, T_gt)
+        if world == 1:
+            one = ic
+        print(f"[spmd] SpmdTracker {world} rank(s) over {backend} on {device}: VGA L0, bands of "
+              f"{TUM_FR1.height // world} rows, {SPMD_IC_ITERS} iterations: error to ground "
+              f"truth {_pose_err(ic[0], T_gt):.3e} (bound max(2 x CPU run's, {SPMD_IC_GT:g})), "
+              f"T max|d| vs {'the CPU run' if world == 1 else '1 rank'} "
+              f"{float((ic[0] - ref_ic[0]).abs().max()):.2e} (tol {SPMD_IC_TOL:g}), s2i "
+              f"{float(ic[1]):.4e} ({float(ref_ic[1]):.4e}), s2x {float(ic[2]):.4e} "
+              f"({float(ref_ic[2]):.4e}), rel {max(_rel(ic[1], ref_ic[1]), _rel(ic[2], ref_ic[2])):.1e} "
+              f"(tol {SPMD_IC_S2_RTOL:g}); launches on rank 0 {r0['ic_counts']}; all-reduces "
+              f"{r0['ic_allreduces']}; host reads in track {r0['ic_reads']} (NCCL only)")
+        print(f"[spmd] SpmdTracker {world} rank(s): ms per iteration, median of {SPMD_REPS} "
+              f"tracks of {SPMD_IC_ITERS}: {r0['ic_ms']:.4f} (rank 0; gloo ranks sharing the "
+              f"card copy each all-reduce through the host); {smi}")
+        prof = r0["ic_profile"]
+        if prof is not None:
+            print(f"[spmd] SpmdTracker {world} rank(s), torch.profiler over one track: device "
+                  f"{prof['us']:.2f} us and {prof['kernels']:.1f} device ops per iteration; "
+                  f"by kind (ops, us per iteration): " + "; ".join(
+                      f"{k} {c:.0f}, {u:.2f}" for k, c, u in prof["kinds"]))
+        print(f"[spmd] SpmdTracker {world} rank(s) checks {ic_checks} "
+              f"{'OK' if all(ic_checks.values()) else 'FAIL'}")
+        checks.update(ic_checks)
         good = all(checks.values())
         ok &= good
         print(f"[spmd] {world} rank(s) over {backend} on {device}: VGA pair, SlamConfig() "
@@ -4011,9 +4385,11 @@ def main() -> int:
     e_ok, e_timing = phase_early_exit()
     so_ok, so_timing = phase_solve(records)
     go_ok, go_timing = phase_go(records)
+    fo_ok = phase_fusion_oracle()
     timing += s_timing + ic_timing + r_timing + b_timing + e_timing + so_timing + v_timing
     timing += go_timing
-    k_ok = k_ok and s_ok and ic_ok and r_ok and b_ok and e_ok and so_ok and v_ok and go_ok
+    k_ok = (k_ok and s_ok and ic_ok and r_ok and b_ok and e_ok and so_ok and v_ok and go_ok
+            and fo_ok)
     runs = [("esm consensus off", slice_config(), False), ("default", default_config(), False),
             ("default mover", default_config(), True), ("ic lagged", ic_config("lagged"), False),
             ("ic exact", ic_config("exact"), False)]
@@ -4086,8 +4462,8 @@ def main() -> int:
     # the relocalization run, the gauntlet rows, the command line, the
     # real-data, viewer and preset runs and the ranks of [spmd]. The scale step runs on
     # the main path as phases of the IC exact launches: its ``launches`` is
-    # that count, and its standalone launches (0 on the main path) stand
-    # beside it.
+    # that count, and its standalone launches (SpmdTracker's, in [spmd])
+    # stand beside it.
     for key, counter in (("esm", "esm_normal_eq"), ("esm_stratified", "esm_stratified"),
                          ("fusion", "fusion"), ("ic_normal", "ic_normal_eq"),
                          ("ic_sigma", "ic_sigma_phases"), ("irls_solve", "irls_solve"),

@@ -2,7 +2,7 @@
 // the SE(3) pose update of ops/gauss_newton.py::ic_update,
 //
 //   delta = solve(H + damping I, b)    (f32 Cholesky, lower triangle)
-//   ok    = n_valid > 100 && every pivot > 0 && delta finite
+//   ok    = n_valid > min_valid && every pivot > 0 && delta finite
 //   T'    = orthonormalize(T . exp(-(ok ? delta : 0)))
 //
 // with exp and orthonormalize as core/se3.py writes them (Taylor branches
@@ -145,15 +145,19 @@ IRLS_HD void orthonormalize(const float M[16], float out[16]) {
 
 // ic_update: H (6x6 row-major, symmetric), b (6), T (4x4 row-major) in;
 // T_out and the applied delta out (zero when the update is suppressed).
+// min_valid is ic_update's: the fused kernels keep its 100; -inf leaves
+// the decision to the factorization and finiteness alone (the IC SPMD
+// tracker's rule, parallel/spmd.py).
 IRLS_HD void solve_update(const float H[36], const float b[6], float damping, float n_valid,
-                          const float T[16], float T_out[16], float delta[6]) {
+                          const float T[16], float T_out[16], float delta[6],
+                          float min_valid = 100.f) {
   float L[36];
   IRLS_UNROLL
   for (int k = 0; k < 36; ++k) L[k] = H[k] + ((k % 7 == 0) ? damping : 0.f);
   const bool factored = cholesky6(L);
   float x[6];
   cholesky6_solve(L, b, x);
-  bool ok = n_valid > 100.f && factored;
+  bool ok = n_valid > min_valid && factored;
   IRLS_UNROLL
   for (int k = 0; k < 6; ++k) ok = ok && is_finite(x[k]);
   float neg[6];

@@ -23,6 +23,12 @@ blocks of ``fuse_frame_plain``; they have no kernel of their own.
 no pose-noise floor, the mask returned as given): ``fuse_core_plain`` on
 the CPU, one launch of the same fusion kernel with growth and the floor
 off on the card, counted in ``fuse_frame.launches`` too.
+
+The numpy oracle of these functions is ``reference_cpu/fusion.py``, the
+port's copy of the JAX package's: ``fuse`` for ``fuse_inverse_depth`` and
+``fuse_core_plain`` without a guess, ``fuse_grow`` for ``fuse_and_grow``
+and ``fuse_frame`` (given the pose-noise floor and ``hole_guess``'s
+guess), held to within the JAX package's fusion tests' tolerances.
 """
 
 from __future__ import annotations

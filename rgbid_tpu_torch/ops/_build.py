@@ -175,7 +175,7 @@ class Library:
         lib.ic_sigma_launch.restype = I
         lib.ic_irls_launch.argtypes = [IcParams, I, I, I] + [P] * 19
         lib.ic_irls_launch.restype = I
-        lib.irls_solve_launch.argtypes = [ctypes.c_float, ctypes.c_float] + [P] * 8
+        lib.irls_solve_launch.argtypes = [ctypes.c_float] * 3 + [P] * 8
         lib.irls_solve_launch.restype = I
         self.consensus_vote_launch = lib.consensus_vote_launch
         self.esm_irls_launch = lib.esm_irls_launch

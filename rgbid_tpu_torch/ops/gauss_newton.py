@@ -447,15 +447,19 @@ def step_norm(delta: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(s.double()).float()
 
 
-def ic_update(T: torch.Tensor, H: torch.Tensor, b: torch.Tensor, damping: float, n_valid):
+def ic_update(T: torch.Tensor, H: torch.Tensor, b: torch.Tensor, damping: float, n_valid,
+              min_valid: float = 100.0):
     """delta = solve(H + damping I, b); T <- T . exp(-delta).
 
-    The update is a no-op when too few pixels were valid (n_valid <= 100)
-    or the factorization or solve failed. ``cholesky_ex`` reports failure
-    in ``info`` instead of raising, so nothing here reads the device."""
+    The update is a no-op when too few pixels were valid (n_valid <=
+    ``min_valid``, 100 as in the JAX package's ``ic_update``) or the
+    factorization or solve failed; ``min_valid=-inf`` leaves the decision to
+    the last two, as the JAX package's ``SpmdTracker`` does.
+    ``cholesky_ex`` reports failure in ``info`` instead of raising, so
+    nothing here reads the device."""
     Hd = H + damping * torch.eye(6, dtype=H.dtype, device=H.device)
     L, info = torch.linalg.cholesky_ex(Hd)
     delta = torch.cholesky_solve(b[:, None], L)[:, 0]
-    ok = (n_valid > 100.0) & torch.isfinite(delta).all() & (info == 0)
+    ok = (n_valid > min_valid) & torch.isfinite(delta).all() & (info == 0)
     delta = torch.where(ok, delta, torch.zeros_like(delta))
     return se3.orthonormalize(T @ se3.exp(-delta)), delta

@@ -15,19 +15,24 @@
   scale step (counterpart of ``sigma_stats`` / ``_sigma_kernel``).
   ``ic_normal_eq`` and ``residuals_and_normal_eq`` make the same launch and
   return the evaluation alone.
-- ``ic_sigma_stats``: one scale step alone, one launch (used by the checks;
-  the tracker runs its scale steps inside ``ic_irls_step``).
+- ``ic_sigma_stats``: one scale step alone, one launch (the IC SPMD
+  tracker's and the checks'; the tracker runs its scale steps inside
+  ``ic_irls_step``).
 - ``esm_stratified``: the motion-consensus vote's (K, 50) per-stratum ESM
   sums as one launch of ``csrc/esm_stratified.cu``; no Pallas kernel is
   behind it, it replaces the XLA reduction
   ``rgbid_tpu/ops/gauss_newton.py::stratified_normal_eq``.
 - ``irls_solve_step``: the end of one IRLS iteration alone (the damped 6x6
   solve and the pose update from a 48-float result) as one launch of
-  ``csrc/irls_solve.cu``, for the row-sharded tracker: its iteration is
-  ``esm_result`` on every rank's band (the result-only ESM launch, as a
-  48-float vector), ``allreduce_irls`` across the ranks, then this launch.
+  ``csrc/irls_solve.cu``, for the row-sharded trackers: an iteration of
+  ``parallel/tracker_spmd.py`` is ``esm_result`` on every rank's band (the
+  result-only ESM launch, as a 48-float vector), ``allreduce_irls`` across
+  the ranks, then this launch; one of ``parallel/spmd.py`` is
+  ``ic_sigma_stats``, an all-reduce of its sums, ``ic_result`` (the
+  result-only lagged IC launch), ``allreduce_irls``, then this launch.
   No Pallas kernel is behind it; it replaces the XLA ``ic_update`` after
-  ``gauss_newton.allreduce_irls`` in the JAX package's sharded tracker.
+  ``gauss_newton.allreduce_irls`` in the JAX package's sharded tracker and
+  the replicated solve of its ``SpmdTracker``.
 
 On a CPU tensor each runs its plain PyTorch version (ops/gauss_newton.py),
 and a step adds ``ic_update``; on a CUDA tensor it launches its kernel or
@@ -191,10 +196,10 @@ def _irls_step(out: torch.Tensor) -> IrlsStep:
                     out)
 
 
-def _plain_out(T, res: IrlsResult, damping: float) -> torch.Tensor:
+def _plain_out(T, res: IrlsResult, damping: float, min_valid: float = 100.0) -> torch.Tensor:
     """The plain version of a fused launch's output: the evaluation, then
     ``ic_update``, in the irls::kOut layout."""
-    T_out, delta = ic_update(T, res.H, res.b, damping, res.n_valid)
+    T_out, delta = ic_update(T, res.H, res.b, damping, res.n_valid, min_valid)
     return torch.cat([pack_result(res), T_out.reshape(16), delta.reshape(6)])
 
 
@@ -807,6 +812,34 @@ def esm_result(
     return _esm_cuda(*args, 0.0, prev, tol, go=go, hold=hold).out[:RESULT]
 
 
+def ic_result(
+    T: torch.Tensor,
+    kf_int: torch.Tensor,
+    kf_points: tuple,
+    kf_mask: torch.Tensor,
+    jac12: torch.Tensor,
+    cur_int: torch.Tensor,
+    cur_xi: torch.Tensor,
+    cur_mask: torch.Tensor,
+    intr: Intrinsics,
+    nu: float,
+    sigma2_int: torch.Tensor,
+    sigma2_xi: torch.Tensor,
+    use_geometric: bool = True,
+    gate_sigmas: float = 3.0,
+) -> torch.Tensor:
+    """The lagged ``ic_normal_eq`` at the given scales as the (48,) result
+    vector, the IC counterpart of ``esm_result``: on the card the result
+    part of the fused launch's output (no copy; its pose update, at damping
+    0, is not read), counted in ``ic_normal_eq.launches``; on the CPU
+    ``normal_eq_plain`` packed."""
+    args = (T, kf_int, kf_points, kf_mask, jac12, cur_int, cur_xi, cur_mask, intr, nu,
+            sigma2_int, sigma2_xi, use_geometric, gate_sigmas, True)
+    if _device_kind(T, "IC normal-equation") == "cpu":
+        return pack_result(normal_eq_plain(*args))
+    return _ic_normal_cuda(*args, 0.0).out[:RESULT]
+
+
 def allreduce_irls(res: torch.Tensor, reduce) -> torch.Tensor:
     """The global result of per-band results (``rgbid_tpu/ops/gauss_newton.py::
     allreduce_irls``): every field but n_valid is a per-pixel mean over the
@@ -828,6 +861,7 @@ def irls_solve_step(
     result: torch.Tensor,
     damping: float,
     *,
+    min_valid: float = 100.0,
     prev: Optional[IrlsStep] = None,
     tol: float = 0.0,
     slot: int = -1,
@@ -836,12 +870,13 @@ def irls_solve_step(
 ) -> IrlsStep:
     """``ic_update`` on a (48,) result vector (``allreduce_irls``'s): the
     solve, the updated pose and the applied step, as an IrlsStep in the
-    fused launches' layout; skipped under the early exit, held under a
-    predicate word of 0 and counted in ``slot`` as ``esm_irls_step``. CPU
-    runs ``ic_update``; CUDA one launch of one block that reads nothing back
-    to the host."""
+    fused launches' layout, the step suppressed unless n_valid >
+    ``min_valid`` (``ic_update``'s argument); skipped under the early exit,
+    held under a predicate word of 0 and counted in ``slot`` as
+    ``esm_irls_step``. CPU runs ``ic_update``; CUDA one launch of one block
+    that reads nothing back to the host."""
     if _device_kind(T, "IRLS solve") == "cpu":
-        out = _plain_out(T, unpack_result(result), damping)
+        out = _plain_out(T, unpack_result(result), damping, min_valid)
         return _cpu_step(out, slot, prev, tol, go, hold)
     dev = T.device
     _build.require(T, "T", dev, (4, 4))
@@ -850,8 +885,8 @@ def irls_solve_step(
     prev_ptr, runs_ptr, go_ptr, hold_ptr = _exit_args(prev, tol, slot, ws, go, hold)
     out = torch.empty((_OUT,), dtype=torch.float32, device=dev)
     status = _build.library().irls_solve_launch(
-        damping, tol, result.data_ptr(), T.data_ptr(), out.data_ptr(), prev_ptr, runs_ptr,
-        go_ptr, hold_ptr, torch.cuda.current_stream(dev).cuda_stream,
+        damping, tol, min_valid, result.data_ptr(), T.data_ptr(), out.data_ptr(), prev_ptr,
+        runs_ptr, go_ptr, hold_ptr, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "irls_solve_launch")
     irls_solve_step.launches += 1

@@ -208,13 +208,24 @@ def test_ic_update_noop_cases_match_jax(which):
         assert np.abs(dt.numpy()).max() > (1e-7 if which == "taylor" else 1e-4)
 
 
+# The header's default min_valid (the fused kernels' call) and an explicit
+# one (the solve launch's).
 _SHIM = r"""
 #include "irls_solve.cuh"
 extern "C" void solve_update_c(const float* H, const float* b, float damping, float n_valid,
                                const float* T, float* T_out, float* delta) {
   irls::solve_update(H, b, damping, n_valid, T, T_out, delta);
 }
+extern "C" void solve_update_min_c(const float* H, const float* b, float damping,
+                                   float n_valid, const float* T, float* T_out, float* delta,
+                                   float min_valid) {
+  irls::solve_update(H, b, damping, n_valid, T, T_out, delta, min_valid);
+}
 """
+# The solver cases again with min_valid -inf (the IC SPMD tracker's rule):
+# the few-valid step is taken, the failed factorizations still hold.
+ANY_COUNT = " min_valid -inf"
+HOST_SOLVE_CASES = SOLVE_CASES + [c + ANY_COUNT for c in ("few_valid", "singular", "nan_h")]
 
 
 @pytest.fixture(scope="module")
@@ -230,31 +241,40 @@ def host_solve(tmp_path_factory):
     subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
                     "-I", str(CSRC), "-o", str(lib), str(work / "shim.cpp")],
                    check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib)).solve_update_c
+    dll = ctypes.CDLL(str(lib))
     P = ctypes.c_void_p
+    fn, fn_min = dll.solve_update_c, dll.solve_update_min_c
     fn.argtypes = [P, P, ctypes.c_float, ctypes.c_float, P, P, P]
-    fn.restype = None
-    return fn
+    fn_min.argtypes = fn.argtypes + [ctypes.c_float]
+    fn.restype = fn_min.restype = None
+    return fn, fn_min
 
 
-@pytest.mark.parametrize("which", SOLVE_CASES)
+@pytest.mark.parametrize("which", HOST_SOLVE_CASES)
 def test_kernel_solve_matches_ic_update(host_solve, which):
     """The kernels' 6x6 Cholesky solve, exp and orthonormalize (the header
     built for the host) against the port's ``ic_update``: delta and T
     within 1e-6 (a 6x6 f32 solve in another order); a suppressed update
-    gives delta exactly 0."""
-    Hm, b, damping, n_valid, T = _solve_case(which)
+    gives delta exactly 0. With min_valid -inf (both sides) a few-valid
+    step is taken."""
+    any_count = which.endswith(ANY_COUNT)
+    Hm, b, damping, n_valid, T = _solve_case(which.removesuffix(ANY_COUNT))
     T = np.array(T, np.float32)
     T_out = np.zeros((4, 4), np.float32)
     delta = np.full(6, np.nan, np.float32)
-    host_solve(Hm.ctypes.data, b.ctypes.data, damping, n_valid, T.ctypes.data,
-               T_out.ctypes.data, delta.ctypes.data)
+    ptrs = (Hm.ctypes.data, b.ctypes.data, damping, n_valid, T.ctypes.data, T_out.ctypes.data,
+            delta.ctypes.data)
+    min_valid = float("-inf") if any_count else 100.0
+    if any_count:
+        host_solve[1](*ptrs, min_valid)
+    else:
+        host_solve[0](*ptrs)
     Tt, dt = tgn.ic_update(torch.from_numpy(T), torch.from_numpy(Hm), torch.from_numpy(b),
-                           damping, torch.tensor(n_valid))
+                           damping, torch.tensor(n_valid), min_valid)
     np.testing.assert_allclose(delta, dt.numpy(), atol=1e-6)
     np.testing.assert_allclose(T_out, Tt.numpy(), atol=1e-6)
     assert np.isfinite(T_out).all()
-    if which in ("ok", "taylor"):
+    if which in ("ok", "taylor", "few_valid" + ANY_COUNT):
         assert np.abs(delta).max() > (1e-7 if which == "taylor" else 1e-4)
     else:
         assert not delta.any()

@@ -298,6 +298,11 @@ def test_ic_kernels_alone_match_pallas(pairs, geo):
     assert round(float(res.inlier_frac) * n) == float(inl)
     # Without lagging, the scales used come back unchanged.
     assert (float(res.sigma2_int), float(res.sigma2_xi)) == (float(s2i), float(s2x))
+    # ic_result (the IC SPMD tracker's evaluation) is the lagged pass packed.
+    vec = kernels.ic_result(*targs, 5.0, torch.tensor(s2i), torch.tensor(s2x), geo, 3.0)
+    lagged = tgn.normal_eq_plain(*targs, 5.0, torch.tensor(s2i), torch.tensor(s2x), geo, 3.0,
+                                 True)
+    assert torch.equal(vec, kernels.pack_result(lagged))
 
 
 # ---------------------------------------------------------------------------

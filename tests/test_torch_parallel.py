@@ -265,31 +265,46 @@ def test_run_ranks_raises_a_rank_exception():
         run_ranks(_raise_on_rank_one, 2, "gloo", "cpu")
 
 
-@pytest.mark.parametrize("case", ["tracked", "few valid", "not positive definite"])
+SOLVE_CASES = {
+    # case: (seed, n_valid, min_valid or None for the default, steps)
+    "tracked": (0, 5000.0, None, True),
+    "few valid": (1, 50.0, None, False),
+    "not positive definite": (2, 5000.0, None, False),
+    # The IC SPMD tracker's rule: any finite delta steps.
+    "few valid, min_valid -inf": (1, 50.0, float("-inf"), True),
+    "not positive definite, min_valid -inf": (2, 5000.0, float("-inf"), False),
+}
+
+
+@pytest.mark.parametrize("case", list(SOLVE_CASES))
 def test_irls_solve_step_plain_equals_ic_update(case):
     """``irls_solve_step`` on the CPU is ``ic_update`` on the unpacked
-    result, the same bits, in the fused layout; under the early exit it is
-    ``prev``, bit for bit."""
+    result, the same bits, in the fused layout, with the default
+    ``min_valid`` (100) and with -inf, where only the factorization and
+    finiteness hold the step; under the early exit it is ``prev``, bit for
+    bit."""
     from rgbid_tpu_torch.ops import gauss_newton, kernels
 
-    rng = np.random.default_rng({"tracked": 0, "few valid": 1, "not positive definite": 2}[case])
+    seed, n_valid, min_valid, steps = SOLVE_CASES[case]
+    rng = np.random.default_rng(seed)
     A = rng.standard_normal((6, 6)).astype(np.float32)
     H = A @ A.T + np.eye(6, dtype=np.float32)
-    if case == "not positive definite":
+    if "not positive definite" in case:
         H[0, 0] = -5.0
     res = gauss_newton.IrlsResult(
         torch.from_numpy(H), torch.from_numpy(rng.standard_normal(6).astype(np.float32) * 1e-2),
-        torch.tensor(0.01), torch.tensor(0.002), torch.tensor(0.3),
-        torch.tensor(50.0 if case == "few valid" else 5000.0), torch.tensor(0.9))
+        torch.tensor(0.01), torch.tensor(0.002), torch.tensor(0.3), torch.tensor(n_valid),
+        torch.tensor(0.9))
     T = torch.from_numpy(np.linalg.qr(rng.standard_normal((4, 4)))[0].astype(np.float32))
     T[3] = torch.tensor([0.0, 0.0, 0.0, 1.0])
     vec = kernels.pack_result(res)
-    step = kernels.irls_solve_step(T, vec, 1e-4)
-    T_ref, d_ref = gauss_newton.ic_update(T, res.H, res.b, 1e-4, res.n_valid)
+    kw = {} if min_valid is None else {"min_valid": min_valid}
+    step = kernels.irls_solve_step(T, vec, 1e-4, **kw)
+    T_ref, d_ref = gauss_newton.ic_update(T, res.H, res.b, 1e-4, res.n_valid, *kw.values())
     assert torch.equal(step.T, T_ref) and torch.equal(step.delta, d_ref)
     assert all(torch.equal(a, b) for a, b in zip(step.result, res))
-    assert bool(step.delta.any()) == (case == "tracked")
-    again = kernels.irls_solve_step(T, vec, 1e-4, prev=step, tol=1e3)
+    assert bool(step.delta.any()) == steps
+    again = kernels.irls_solve_step(T, vec, 1e-4, prev=step, tol=1e3, **kw)
     assert torch.equal(again.out, step.out)
 
 

@@ -187,8 +187,9 @@ def test_port_imports_no_jax_or_cv2():
     command line), renders a short sequence, writes it as a TUM directory
     with the port's PNG encoder, reads it back through the TUM reader (with
     the fr1 undistortion) and the live source, saves and restores a
-    snapshot, draws both plots, renders a live-viewer panel and imports the
-    multi-rank modules, without loading jax, cv2 or matplotlib,
+    snapshot, draws both plots, renders a live-viewer panel, imports the
+    multi-rank modules (``SpmdTracker`` too) and runs the numpy fusion
+    oracle, without loading jax, cv2 or matplotlib,
     and without loading any module from a file of the JAX package
     (``rgbid_tpu/``); the port's config is the JAX package's (same hash)."""
     code = (
@@ -238,6 +239,12 @@ def test_port_imports_no_jax_or_cv2():
         "assert snapshot.restore(os.path.join(d, 's.npz'), device='cpu')._frame_count == 2\n"
         "from rgbid_tpu_torch.utils import viz, raster, live_view\n"
         "import rgbid_tpu_torch.parallel, rgbid_tpu_torch.parallel.launch\n"
+        "from rgbid_tpu_torch.parallel import SpmdTracker\n"
+        "from rgbid_tpu_torch.reference_cpu import fusion as fusion_ref\n"
+        "xi0 = np.full((48, 64), 0.5, np.float32); m0 = np.ones((48, 64), bool)\n"
+        "out = fusion_ref.fuse(xi0, np.full_like(xi0, 1e-4), m0, xi0, m0, np.eye(4),\n"
+        "                      np.zeros((6, 6)), intr, port.SlamConfig().fusion)\n"
+        "assert 0.9 * m0.sum() < out[3] <= m0.sum()\n"
         "viz.plot_trajectory([('est', poses)], os.path.join(d, 't.png'), keyframe_poses=poses)\n"
         "viz.plot_map_topdown(slam.map_points(), os.path.join(d, 'm.png'))\n"
         "lv = live_view.LiveViewer(os.path.join(d, 'live'))\n"
