@@ -55,6 +55,12 @@ otherwise. Phases, each printing its own lines:
    tests/test_fusion.py's rules on a noisy VGA pair: ``fuse_inverse_depth``
    against ``fuse``, ``fuse_frame`` with growth on a hole-punched keyframe
    against ``fuse_grow``;
+   Then [api]: the JAX package's smaller public functions (``core.se3``'s
+   identity, from_rt, transform_points and quaternions, ``core.camera``'s
+   pixel grid and pinhole maps, ``ops.warp.bilinear_sample``,
+   ``ops.image.build_pyramids_multi``, ``tracking.step.unpack_frame``) on
+   the card at VGA against the same calls on the CPU, each once under
+   set_sync_debug_mode("error"), and µs a call;
 4. main paths: SlamSystem over synthetic VGA sequences with known ground
    truth, five times, and a sixth over a closed loop (item 6): the ESM configuration with the consensus off, the
    default configuration (``SlamConfig()``, back end off: ESM with the
@@ -2449,6 +2455,128 @@ def phase_profile(cfg, n: int = 10, label: str = "default"):
         for k, v in sorted(by_kind.items())))
 
 
+# Rotations for [api]'s quaternions: each of Shepperd's four pivots the
+# largest, an exact tie of the first two, and two near pi.
+API_ROTATIONS = (
+    _rot(0.2, -0.3, 0.1), _rot(2.6, 0.1, -0.2), _rot(0.1, 2.5, 0.15), _rot(-0.2, 0.1, 2.7),
+    np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]]), _rot(np.pi - 1e-3, 0.0, 0.0),
+    _rot(0.0, 0.0, -(np.pi - 5e-4)),
+)
+
+
+def _api_cases(intr: Intrinsics, seed: int = 16):
+    """[api]'s calls: (name, function, numpy inputs, check), where check is
+    ("close", rtol, atol), ("bilinear",) or ("equal",). VGA inputs."""
+    from rgbid_tpu_torch.core import camera
+    from rgbid_tpu_torch.ops import image, warp
+    from rgbid_tpu_torch.tracking.step import unpack_frame
+
+    rng = np.random.default_rng(seed)
+    h, w = intr.height, intr.width
+    f32 = np.float32
+    T = np.eye(4, dtype=f32)
+    T[:3, :3] = API_ROTATIONS[0]
+    T[:3, 3] = [0.1, -0.05, 0.2]
+    pts = rng.normal(size=(h * w, 3)).astype(f32)
+    u = rng.uniform(-5, w + 5, (h, w)).astype(f32)
+    v = rng.uniform(-5, h + 5, (h, w)).astype(f32)
+    xi = rng.uniform(0.1, 3.0, (h, w)).astype(f32)
+    xi[rng.random((h, w)) < 0.1] = 0.0
+    mask = (rng.random((h, w)) > 0.15).astype(f32)
+    mask[100:160, 200:330] = 0.0
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = (0.5 + 0.3 * np.sin(xx / 9.0) * np.cos(yy / 13.0)).astype(f32)
+    rots = np.stack(API_ROTATIONS).astype(f32)
+    quats = np.stack([se3.to_quaternion(torch.from_numpy(r)).numpy() for r in rots])
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    depth = rng.integers(0, 65536, (h, w), dtype=np.uint16)
+    se3_tol, cam_tol = ("close", 1e-6, 1e-6), ("close", 1e-6, 0.0)
+
+    def quaternions(r):
+        return torch.stack([se3.to_quaternion(r[i]) for i in range(len(API_ROTATIONS))])
+
+    def rotations(q):
+        return torch.stack([se3.from_quaternion(q[i]) for i in range(len(API_ROTATIONS))])
+
+    def pyramids(i0, m0, i1, m1):
+        pyrs, mpyrs = image.build_pyramids_multi([i0, i1], [m0, m1], 4)
+        return [p for pyr in pyrs + mpyrs for p in pyr]
+
+    return [
+        ("se3.identity", lambda t: se3.identity(device=t.device), (T,), ("equal",)),
+        ("se3.from_rt", lambda t: se3.from_rt(t[:3, :3], t[:3, 3]), (T,), ("equal",)),
+        ("se3.transform_points", se3.transform_points, (T, pts), se3_tol),
+        ("se3.to_quaternion x7", quaternions, (rots,), se3_tol),
+        ("se3.from_quaternion x7", rotations, (quats,), se3_tol),
+        ("camera.pixel_grid", lambda x: camera.pixel_grid(h, w, device=x.device), (xi,),
+         ("equal",)),
+        ("camera.backproject", lambda a, b, c: camera.backproject(a, b, c, intr), (u, v, xi),
+         cam_tol),
+        ("camera.project", lambda a, b, c: camera.project(a, b, c, intr),
+         (pts[:, 0].reshape(h, w), pts[:, 1].reshape(h, w), xi), cam_tol),
+        ("warp.bilinear_sample", warp.bilinear_sample, (img, mask, u, v), ("bilinear",)),
+        ("image.build_pyramids_multi", pyramids, (img, mask, xi, (xi > 0).astype(f32)),
+         ("close", 0.0, 1e-6)),
+        ("step.unpack_frame", unpack_frame, (pack_frame(rgb, depth),), ("equal",)),
+    ]
+
+
+def _api_agrees(check, card, cpu) -> tuple:
+    """(ok, max |card - cpu|) over the outputs of one [api] call."""
+    card = [card] if torch.is_tensor(card) else list(card)
+    cpu = [cpu] if torch.is_tensor(cpu) else list(cpu)
+    ok, err = len(card) == len(cpu), 0.0
+    for i, (k, c) in enumerate(zip(card, cpu)):
+        k, c = k.cpu().numpy(), c.numpy()
+        ok &= k.shape == c.shape and k.dtype == c.dtype
+        if not ok:
+            break
+        d = np.abs(k.astype(np.float64) - c.astype(np.float64))
+        err = max(err, float(d.max()))
+        if check[0] == "equal" or (check[0] == "bilinear" and i == 1):
+            ok &= bool(np.array_equal(k, c))
+        elif check[0] == "bilinear":
+            ok &= bool((d <= 1e-5).all())
+        else:
+            ok &= bool(np.allclose(k, c, rtol=check[1], atol=check[2]))
+    return ok, err
+
+
+def phase_api(smi: str) -> bool:
+    """[api]: the JAX package's smaller public functions on the card at VGA,
+    each against the same call on the CPU (se3 within 1e-6 absolute below 1
+    and relative above; camera within 1e-6 relative; ``bilinear_sample``'s
+    validity equal and values within 1e-5; ``build_pyramids_multi`` within
+    1e-6, masks equal; the rest equal), each call once under
+    ``set_sync_debug_mode("error")`` (no host read), and its µs a call
+    (CUDA events over 50 back-to-back calls, launch included)."""
+    ok = True
+    for name, fn, inputs, check in _api_cases(TUM_FR1):
+        cpu_args = [torch.from_numpy(np.ascontiguousarray(a)) for a in inputs]
+        card_args = [a.cuda() for a in cpu_args]
+        fn(*card_args)  # warm-up: the blur taps' one upload, cuDNN's plans
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card, synced = fn(*card_args), ""
+        except RuntimeError as e:
+            card, synced = None, str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if card is None:
+            print(f"[api] {name}: FAIL, synchronized: {synced}")
+            ok = False
+            continue
+        good, err = _api_agrees(check, card, fn(*cpu_args))
+        us = _time_ms(lambda: fn(*card_args)) * 1e3
+        print(f"[api] {name}: {'OK' if good else 'FAIL'}, max |card - cpu| {err:.3g} "
+              f"({check[0]}{'' if len(check) == 1 else f' rtol {check[1]} atol {check[2]}'}), "
+              f"no sync, {us:.2f} µs a call; {smi}")
+        ok &= good
+    print(f"[api] {'OK' if ok else 'FAILED'}")
+    return ok
+
+
 def _run_sequence(slam, frames):
     """Process frames; returns (poses, per-frame wall ms)."""
     ms = []
@@ -4390,6 +4518,7 @@ def main() -> int:
     timing += go_timing
     k_ok = (k_ok and s_ok and ic_ok and r_ok and b_ok and e_ok and so_ok and v_ok and go_ok
             and fo_ok)
+    a_ok = phase_api(smi)
     runs = [("esm consensus off", slice_config(), False), ("default", default_config(), False),
             ("default mover", default_config(), True), ("ic lagged", ic_config("lagged"), False),
             ("ic exact", ic_config("exact"), False)]
@@ -4485,9 +4614,10 @@ def main() -> int:
     kern = [records[k] for k in ("esm", "esm_stratified", "fusion", "ic_normal", "ic_sigma",
                                  "irls_solve", "consensus_vote")]
     print(json.dumps({"kernels": kern}))
-    if not (k_ok and m_ok):
-        print(f"chip_smoke: FAILED (kernels {'ok' if k_ok else 'failed'}, main "
-              f"paths {'ok' if m_ok else 'failed'})", file=sys.stderr)
+    if not (k_ok and a_ok and m_ok):
+        print(f"chip_smoke: FAILED (kernels {'ok' if k_ok else 'failed'}, api "
+              f"{'ok' if a_ok else 'failed'}, main paths {'ok' if m_ok else 'failed'})",
+              file=sys.stderr)
         return 1
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

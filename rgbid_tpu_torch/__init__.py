@@ -14,6 +14,8 @@ imports it, nor JAX.
     slam.trajectory(); slam.map_points()
 """
 
+__version__ = "0.1.0"
+
 from . import _precision  # noqa: F401  (float32 matmuls and convolutions)
 from .core.camera import Intrinsics  # noqa: F401
 from .core.config import SlamConfig  # noqa: F401

@@ -173,6 +173,12 @@ class BackendThread:
         with self._lock:
             return bool(self._optimized)
 
+    def optimized_poses(self) -> Dict[int, np.ndarray]:
+        """A copy of the pending optimized poses, taken under the lock
+        (``take_updates`` pops them)."""
+        with self._lock:
+            return dict(self._optimized)
+
     def take_updates(self) -> Dict[int, np.ndarray]:
         """Pop the pending optimized poses (consume-once publication)."""
         with self._lock:

@@ -1,12 +1,15 @@
 """Pinhole camera model with per-pyramid-level intrinsics.
 
-Pure-Python copy of ``rgbid_tpu/core/camera.py:19-63`` (that module
-imports jax.numpy, so it cannot be loaded by path).
+Counterpart of ``rgbid_tpu/core/camera.py``: the intrinsics and their
+per-level scaling in pure Python, the pixel grid and the pinhole
+back-projection and projection on torch tensors.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import torch
 
 
 class Intrinsics(NamedTuple):
@@ -48,3 +51,28 @@ def level_intrinsics(intr: Intrinsics, level: int) -> Intrinsics:
         width=w,
         height=h,
     )
+
+
+def pixel_grid(h: int, w: int, dtype=torch.float32, device=None):
+    """(u, v) coordinate planes of shape (h, w), broadcast views of two
+    ``arange``s (no (h, w) plane is written)."""
+    u = torch.arange(w, dtype=dtype, device=device).expand(h, w)
+    v = torch.arange(h, dtype=dtype, device=device)[:, None].expand(h, w)
+    return u, v
+
+
+def backproject(u, v, xi, intr: Intrinsics):
+    """Pixel (u, v) with inverse depth xi -> camera-frame point (X, Y, Z),
+    Z = 1/xi. xi is clamped to 1e-8 (NaN-free); the caller masks xi <= 0."""
+    z = 1.0 / torch.clamp(xi, min=1e-8)
+    x = (u - intr.cx) / intr.fx * z
+    y = (v - intr.cy) / intr.fy * z
+    return x, y, z
+
+
+def project(x, y, z, intr: Intrinsics):
+    """Camera-frame point -> (u, v, rho), rho = 1/Z the inverse depth."""
+    rho = 1.0 / torch.clamp(z, min=1e-8)
+    u = intr.fx * x * rho + intr.cx
+    v = intr.fy * y * rho + intr.cy
+    return u, v, rho

@@ -113,3 +113,55 @@ def orthonormalize(T: torch.Tensor, iters: int = 2) -> torch.Tensor:
     for _ in range(iters):
         R = R @ (1.5 * eye3 - 0.5 * (R.T @ R))
     return _compose(R, T[:3, 3])
+
+
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
+def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(4, 4) transform from R (3, 3) and t (3,)."""
+    return _compose(R, t)
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply T to points of shape (..., 3)."""
+    return pts @ T[:3, :3].T + T[:3, 3]
+
+
+def to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion [qx, qy, qz, qw] (TUM order), sign
+    canonicalized to qw >= 0. Shepperd's four candidates, the one with the
+    largest pivot (the first on ties, as ``jnp.argmax``) picked by
+    ``torch.gather``: a 0-d index tensor would read the host."""
+    m00, m01, m02 = R[0, 0], R[0, 1], R[0, 2]
+    m10, m11, m12 = R[1, 0], R[1, 1], R[1, 2]
+    m20, m21, m22 = R[2, 0], R[2, 1], R[2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01])
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20])
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21])
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22])
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                          1.0 - m00 - m11 + m22])
+    idx = torch.argmax(pivots).reshape(1, 1).expand(4, 1)
+    q = torch.gather(torch.stack([qx, qy, qz, qw]), 1, idx)[:, 0]
+    q = q / torch.linalg.vector_norm(q)
+    return torch.where(q[3] < 0, -q, q)
+
+
+def from_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [qx, qy, qz, qw] -> rotation matrix."""
+    x, y, z, w = q[0], q[1], q[2], q[3]
+    n = x * x + y * y + z * z + w * w
+    s = torch.where(n > 0, 2.0 / n, torch.zeros_like(n))
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack(
+        [
+            torch.stack([1.0 - (yy + zz), xy - wz, xz + wy]),
+            torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx]),
+            torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)]),
+        ]
+    )

@@ -62,3 +62,5 @@ def prefetch_frames(frames, depth: int = 4):
 
 
 from .synthetic import SyntheticSequence, generate_sequence, make_scene, render_frame  # noqa: E402,F401
+from .tum import TumSequence, load_calibration  # noqa: E402,F401
+from .live import LiveSource  # noqa: E402,F401

@@ -187,29 +187,42 @@ class Keyframe:
 
 
 def extract_cloud(
+    intensity0: Optional[np.ndarray],
     xi0: np.ndarray,
     mask0: np.ndarray,
     var0: np.ndarray,
-    rgb: np.ndarray,
     intr,
     max_sigma: float = 0.05,
+    stride: int = 1,
+    rgb: Optional[np.ndarray] = None,
     grid_step: int = 1,
 ) -> np.ndarray:
     """K10: backproject the fused keyframe map -> (N, 6) xyz+rgb float32
-    (host numpy, after the JAX package's function). The planes and the
-    (H, W, 3) or gray (H, W) u8 image are pre-strided by ``grid_step``."""
+    (host numpy, as the JAX package's function).
+
+    The colours come from the (H, W, 3) u8 image ``rgb`` when it is given,
+    else from the gray ``intensity0`` in [0, 1], replicated. ``stride``
+    keeps one pixel in ``stride`` of full planes; ``grid_step`` says the
+    planes are already strided by that factor (pixel (i, j) of the planes
+    is pixel (i * grid_step, j * grid_step) of the image)."""
     h, w = xi0.shape
     u, v = np.meshgrid(
         np.arange(w, dtype=np.float32) * grid_step,
         np.arange(h, dtype=np.float32) * grid_step,
     )
     keep = (mask0 > 0) & (np.sqrt(np.maximum(var0, 0.0)) < max_sigma) & (xi0 > 1e-6)
+    if stride > 1:
+        sel = np.zeros_like(keep)
+        sel[::stride, ::stride] = True
+        keep &= sel
     z = 1.0 / np.maximum(xi0, 1e-6)
     x = (u - intr.cx) / intr.fx * z
     y = (v - intr.cy) / intr.fy * z
-    c = rgb.astype(np.float32) * (1.0 / 255.0)
-    if c.ndim == 2:
-        c = np.repeat(c[..., None], 3, axis=-1)
-    pts = np.stack([x[keep], y[keep], z[keep], c[..., 0][keep], c[..., 1][keep],
-                    c[..., 2][keep]], axis=1)
+    if rgb is not None:
+        c = rgb.astype(np.float32) * (1.0 / 255.0)
+        cols = [c[..., 0][keep], c[..., 1][keep], c[..., 2][keep]]
+    else:
+        g = np.clip(intensity0, 0.0, 1.0)
+        cols = [g[keep], g[keep], g[keep]]
+    pts = np.stack([x[keep], y[keep], z[keep]] + cols, axis=1)
     return pts.astype(np.float32)

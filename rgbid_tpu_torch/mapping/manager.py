@@ -106,9 +106,12 @@ class KeyframeManager:
             o += n
         xi0, mask0, var0, li_int, li_xi, li_mask = out
         s = max(self.cloud_stride, 1)
+        # A gray (H, W) founding image goes in as the gray intensity.
+        img = kf.rgb[::s, ::s]
+        gray = img.ndim == 2
         kf.cloud = extract_cloud(
-            xi0, mask0 > 0.5, var0, kf.rgb[::s, ::s], self.intr,
-            max_sigma=self.cloud_max_sigma, grid_step=s,
+            img.astype(np.float32) * (1.0 / 255.0) if gray else None, xi0, mask0 > 0.5, var0,
+            self.intr, max_sigma=self.cloud_max_sigma, rgb=None if gray else img, grid_step=s,
         )
         kf.reloc_planes = {
             "intensity": li_int,

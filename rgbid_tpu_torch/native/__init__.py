@@ -105,6 +105,16 @@ def load():
         return _lib
 
 
+def available() -> bool:
+    """False when there is no toolchain; else True once ``load()``
+    succeeds. A failed build or load raises ``RuntimeError`` here too: it
+    never turns into a quiet False."""
+    if toolchain() is None:
+        return False
+    load()
+    return True
+
+
 # ---------------------------------------------------------------------------
 # numpy-facing wrappers
 

@@ -108,6 +108,23 @@ def downsample(img: torch.Tensor, mask: torch.Tensor, min_weight: float = 0.25):
     return out, out_mask
 
 
+def downsample_multi(imgs, masks, min_weight: float = 0.25):
+    """Masked downsample of P plane/mask pairs in one batched conv pass
+    over the stacked ``img * mask`` and mask planes. Returns (outs,
+    out_masks), lists of P planes."""
+    p = len(imgs)
+    blurred = _conv_sep(torch.stack([imgs[i] * masks[i] for i in range(p)] + list(masks)),
+                        (2, 2))
+    nums, dens = blurred[:p], blurred[p:]
+    outs, out_masks = [], []
+    for i in range(p):
+        outs.append(torch.where(dens[i] > 1e-6, nums[i] / torch.clamp(dens[i], min=1e-6),
+                                torch.zeros_like(nums[i])))
+        sub_mask = masks[i][::2, ::2]
+        out_masks.append(((dens[i] > min_weight) & (sub_mask > 0.5)).to(torch.float32))
+    return outs, out_masks
+
+
 @functools.lru_cache(maxsize=None)
 def _ones_blur_inv_np(h: int, w: int) -> np.ndarray:
     """1 / (stride-2 zero-pad binomial blur of an all-ones (h, w) plane):
@@ -155,6 +172,21 @@ def build_pyramid(img: torch.Tensor, mask: torch.Tensor, levels: int):
         imgs.append(i2)
         masks.append(m2)
     return imgs, masks
+
+
+def build_pyramids_multi(imgs, masks, levels: int):
+    """P joint masked pyramids with one batched conv pass per level.
+    Returns (pyramids, mask_pyramids), one list of ``levels`` planes per
+    input plane."""
+    cur_i, cur_m = list(imgs), list(masks)
+    out_i, out_m = [cur_i], [cur_m]
+    for _ in range(levels - 1):
+        cur_i, cur_m = downsample_multi(cur_i, cur_m)
+        out_i.append(cur_i)
+        out_m.append(cur_m)
+    pyrs = [[out_i[lv][p] for lv in range(levels)] for p in range(len(imgs))]
+    mpyrs = [[out_m[lv][p] for lv in range(levels)] for p in range(len(imgs))]
+    return pyrs, mpyrs
 
 
 # K4 -----------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """SE(3) warping + bilinear sampling (K5's gather half, K2's remap).
 
-Counterpart of ``rgbid_tpu/ops/warp.py:19-166``, in plain PyTorch. On the
+Counterpart of ``rgbid_tpu/ops/warp.py``, in plain PyTorch. On the
 card the ESM and fusion kernels do this work themselves (per thread, in
 the same order of float operations); these functions are what the plain
 versions of those kernels, and the tests, run.
@@ -15,13 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.camera import Intrinsics
-
-
-def pixel_grid(h: int, w: int, device=None):
-    u = torch.arange(w, dtype=torch.float32, device=device).expand(h, w)
-    v = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
-    return u, v
+from ..core.camera import Intrinsics, pixel_grid  # noqa: F401  (re-exported, as the JAX module's)
 
 
 def backproject_grid(xi: torch.Tensor, intr: Intrinsics, row_offset: int = 0):
@@ -31,7 +25,7 @@ def backproject_grid(xi: torch.Tensor, intr: Intrinsics, row_offset: int = 0):
     row-sharded tracker holds one horizontal band of the keyframe and
     backprojects it with the global row indices."""
     h, w = xi.shape
-    u, v = pixel_grid(h, w, xi.device)
+    u, v = pixel_grid(h, w, device=xi.device)
     if row_offset:
         v = v + float(row_offset)
     z = 1.0 / torch.clamp(xi, min=1e-8)
@@ -114,3 +108,27 @@ def sample_tracker_planes(stack3: torch.Tensor, u: torch.Tensor, v: torch.Tensor
     Returns (blend0, blend1, mask_ok, inb), each shaped like u."""
     blend, mask_ok, inb = sample_stack7(stack3, u, v)
     return blend[0], blend[1], mask_ok, inb
+
+
+def bilinear_sample(img: torch.Tensor, mask, u: torch.Tensor, v: torch.Tensor):
+    """Bilinear sample of an (H, W) plane at continuous (u, v).
+
+    valid = in bounds and, when ``mask`` is given, all four corner pixels
+    valid. The corners come from one flat gather on the plane's device
+    (no host read). Returns (value, valid_f32), each shaped like u."""
+    h, w = img.shape
+    inb, u0, v0, u1, v1, fu, fv = _corner_weights(u, v, h, w)
+    flat_img = img.reshape(-1)
+    idx = torch.stack([v0 * w + u0, v0 * w + u1, v1 * w + u0, v1 * w + u1])
+    i00, i01, i10, i11 = flat_img[idx]
+    val = (
+        i00 * (1 - fu) * (1 - fv)
+        + i01 * fu * (1 - fv)
+        + i10 * (1 - fu) * fv
+        + i11 * fu * fv
+    )
+    ok = inb
+    if mask is not None:
+        m00, m01, m10, m11 = mask.reshape(-1)[idx]
+        ok = ok * m00 * m01 * m10 * m11
+    return val, ok

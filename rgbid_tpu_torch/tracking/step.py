@@ -224,6 +224,13 @@ def check_packed_shape(shape: tuple, cfg) -> None:
         )
 
 
+def unpack_frame(packed_u8: torch.Tensor):
+    """Device side: the u16 codec's inverse, (3, H, W) -> (gray u8, depth).
+    The depth holds the raw u16 values in int32 (``torch.uint16`` lacks
+    the shift and ``or`` on some backends)."""
+    return packed_u8[0], packed_u8[1].to(torch.int32) | (packed_u8[2].to(torch.int32) << 8)
+
+
 def decode_frame(packed_u8: torch.Tensor, cfg):
     """Device side: a packed upload -> (gray u8, xi, mask), by
     ``cfg.depth_codec``. Plain PyTorch ops, as the JAX package's decode is
@@ -254,8 +261,7 @@ def decode_frame(packed_u8: torch.Tensor, cfg):
                                                     cfg.max_depth)
         xi, mask = image.upsample2x_renorm(xi_h, mask_h)
         return gray, xi, mask
-    gray = packed_u8[0]
-    d16 = packed_u8[1].to(torch.int32) | (packed_u8[2].to(torch.int32) << 8)
+    gray, d16 = unpack_frame(packed_u8)
     xi, mask = image.inverse_depth_from_u16(d16, cfg.depth_scale, cfg.min_depth, cfg.max_depth)
     return gray, xi, mask
 

@@ -188,8 +188,10 @@ def test_port_imports_no_jax_or_cv2():
     with the port's PNG encoder, reads it back through the TUM reader (with
     the fr1 undistortion) and the live source, saves and restores a
     snapshot, draws both plots, renders a live-viewer panel, imports the
-    multi-rank modules (``SpmdTracker`` too) and runs the numpy fusion
-    oracle, without loading jax, cv2 or matplotlib,
+    multi-rank modules (``SpmdTracker`` too), runs the numpy fusion
+    oracle and imports the subpackages' re-exports (``datasets``'
+    readers, ``core``'s and ``ops``' submodules), without loading jax,
+    cv2 or matplotlib,
     and without loading any module from a file of the JAX package
     (``rgbid_tpu/``); the port's config is the JAX package's (same hash)."""
     code = (
@@ -241,6 +243,10 @@ def test_port_imports_no_jax_or_cv2():
         "import rgbid_tpu_torch.parallel, rgbid_tpu_torch.parallel.launch\n"
         "from rgbid_tpu_torch.parallel import SpmdTracker\n"
         "from rgbid_tpu_torch.reference_cpu import fusion as fusion_ref\n"
+        "from rgbid_tpu_torch.datasets import LiveSource, TumSequence, load_calibration\n"
+        "from rgbid_tpu_torch.core import camera, config, se3\n"
+        "from rgbid_tpu_torch.ops import gauss_newton, image, warp\n"
+        "assert se3.to_quaternion(se3.identity()[:3, :3])[3] == 1 and warp.bilinear_sample\n"
         "xi0 = np.full((48, 64), 0.5, np.float32); m0 = np.ones((48, 64), bool)\n"
         "out = fusion_ref.fuse(xi0, np.full_like(xi0, 1e-4), m0, xi0, m0, np.eye(4),\n"
         "                      np.zeros((6, 6)), intr, port.SlamConfig().fusion)\n"
