@@ -13,15 +13,15 @@ go on the default stream, like the front end's. The thread never dies of an
 exception in its per-keyframe work; it counts them (``errors``), and a run
 that is meant to be healthy checks that count. ``timings`` keeps the host
 milliseconds of each part of every keyframe event (finalize, ORB, BoW query
-and insert, ``score_pairs``, ``optimize``): two clock reads a part.
+and insert, ``score_pairs``, ``optimize``): each part is a span
+(``utils/profiling.py``) named ``rgbid.backend.<part>``, so under
+``torch.profiler`` the thread's parts show beside the front end's spans.
 """
 
 from __future__ import annotations
 
-import contextlib
 import queue
 import threading
-import time
 import traceback
 from typing import Dict, List, Optional
 
@@ -30,6 +30,7 @@ import numpy as np
 from ..core.config import SlamConfig
 from ..mapping.keyframe import Keyframe
 from ..reference_cpu import se3_np
+from ..utils.profiling import SinkSpan
 from . import features
 from .place_recognition import BowDatabase
 from .pose_graph import PoseGraph
@@ -51,14 +52,11 @@ def loop_edge(res, i: int, from_id: int, to_id: int) -> dict:
     }
 
 
-@contextlib.contextmanager
-def _timed(timings: Dict[str, List[float]], part: str):
-    """Append the block's wall milliseconds to ``timings[part]``."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        timings.setdefault(part, []).append((time.perf_counter() - t0) * 1e3)
+def _timed(timings: Dict[str, List[float]], part: str) -> SinkSpan:
+    """The block as the span ``rgbid.backend.<part>``; its wall
+    milliseconds are appended to ``timings[part]``."""
+    return SinkSpan("rgbid.backend." + part,
+                    lambda ns: timings.setdefault(part, []).append(ns * 1e-6))
 
 
 class LoopCloser:

@@ -103,7 +103,7 @@ def main(argv=None):
     from .eval.metrics import associate_trajectories, trajectory_from_tum_rows
     from .system import SlamSystem
     from .utils.logging import JsonlLogger
-    from .utils.profiling import StageTimer
+    from .utils.profiling import flight_summary
 
     cfg = SlamConfig.preset(args.preset) if args.preset else SlamConfig()
     if args.config:
@@ -166,7 +166,6 @@ def main(argv=None):
     if args.max_frames is not None:
         frames = itertools.islice(frames, args.max_frames)
 
-    timer = StageTimer()
     t_start = time.perf_counter()
     n = 0
     logged = 0
@@ -190,20 +189,19 @@ def main(argv=None):
         logged = len(slam.stats)
 
     chunk = []
-    with timer.stage("frames"):
-        for f in prefetch_frames(frames, depth=cfg.pipeline_depth + 2):
-            chunk.append(f)
-            if len(chunk) >= cfg.pipeline_depth:
-                slam.feed(chunk)
-                _log_new()
-                chunk = []
-        if chunk:
+    for f in prefetch_frames(frames, depth=cfg.pipeline_depth + 2):
+        chunk.append(f)
+        if len(chunk) >= cfg.pipeline_depth:
             slam.feed(chunk)
             _log_new()
-    with timer.stage("finish"):
-        slam.finish()
+            chunk = []
+    if chunk:
+        slam.feed(chunk)
         _log_new()
+    slam.finish()
+    _log_new()
     wall = time.perf_counter() - t_start
+    flights = flight_summary(slam.flights())
 
     result = {
         "frames": n,
@@ -212,6 +210,10 @@ def main(argv=None):
         "lost_frames": int(sum(r.get("lost", 0) for r in slam.stats)),
         "wall_s": round(wall, 2),
         "fps": round(n / wall, 2),
+        # The operator's view of the host path: microseconds a frame in each
+        # span of the flight log, and the card's idle share of the flights.
+        "host_us_per_frame": {k: round(v, 1) for k, v in flights["us_per_frame"].items()},
+        "device_idle_pct": flights["device_idle_pct"],
         "config_hash": cfg.config_hash(),
     }
 

@@ -21,11 +21,18 @@ end's ORB features are host numpy (``backend/orb.py``): once per keyframe
 on the thread, once per relocalization attempt here. With ``viz.enabled``
 a third thread (``utils/live_view.py``) renders snapshots that the front
 end hands it every ``viz.every_n`` frames, made from host data only.
+
+The host path is timed in spans (``utils/profiling.py``): ``rgbid.flight``
+around each flight, ``rgbid.pack``, ``rgbid.upload`` and ``rgbid.dispatch``
+around each frame's packing, upload and dispatch, ``rgbid.wait`` around the
+flight's read and ``rgbid.handle`` around each frame's bookkeeping. Each
+flight is one row of the process-wide flight log (``flights()``), with the
+card's busy time from one pair of CUDA timing events a frame. Under
+``torch.profiler`` the spans name the host's part of the card's timeline.
 """
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -42,6 +49,7 @@ from .reference_cpu import odometry, se3_np
 from .tracking.step import (MotionState, ProcessFrame, StepResult, check_packed_shape,
                             gray_from_rgb, pack_frame)
 from .tracking.tracker import check_tracking_supported
+from .utils import profiling
 from .utils.live_view import LiveViewer
 
 
@@ -140,13 +148,23 @@ class SlamSystem:
     def T_wk(self) -> np.ndarray:
         return self.manager.active.T_wk
 
+    def flights(self) -> np.ndarray:
+        """This system's rows of the flight log since its last reset, oldest
+        first (``utils/profiling.py``: a flight's wall time, the host time
+        of each span, the card's busy time, the garbage collections)."""
+        return profiling.flights(self._flights.system)
+
     def _upload(self, packed_u8: np.ndarray) -> torch.Tensor:
         """The packed frame on the device, in any codec's shape: (3, H, W),
         (H, 5W/2) or (3H/2, W); ``decode_frame`` is its only reader."""
-        t = torch.from_numpy(packed_u8)
-        if self.device.type == "cuda":
-            # Pinned + non_blocking: a pageable copy would synchronize.
-            return t.pin_memory().to(self.device, non_blocking=True)
+        fl = self._flights
+        with fl.upload:
+            t = torch.from_numpy(packed_u8)
+            if self.device.type == "cuda":
+                # Pinned + non_blocking: a pageable copy would synchronize.
+                t = t.pin_memory()
+                fl.frame_begin()
+                t = t.to(self.device, non_blocking=True)
         return t
 
     def _packed(self, packed) -> torch.Tensor:
@@ -173,21 +191,28 @@ class SlamSystem:
         supplies the frame's upload prepared ahead of time
         (``pack_frame(rgb_u8, depth_u16, config)``, numpy or already on the
         device); it must use this system's depth codec, and is checked
-        before any state changes."""
-        t0 = time.perf_counter()
+        before any state changes. The bootstrap frame's founding is timed
+        as its dispatch, its record as its handling."""
+        fl = self._flights
+        fl.open(self._frame_count)
         if packed is None:
-            packed = self._upload(pack_frame(rgb_u8, depth_u16, self.config))
+            with fl.pack:
+                packed = pack_frame(rgb_u8, depth_u16, self.config)
+            packed = self._upload(packed)
         else:
             packed = self._packed(packed)
         if self._kf_state is None:
-            self._found_keyframe(packed, timestamp, np.eye(4), rgb_u8, depth_u16)
+            with fl.dispatch:
+                self._found_keyframe(packed, timestamp, np.eye(4), rgb_u8, depth_u16)
             T_wc = np.eye(4)
-            self._record(timestamp, T_wc, None)
+            with fl.handle:
+                self._record(timestamp, T_wc, None)
+            fl.close(1)
             return T_wc
         # Live pose-graph publication: apply pending optimized keyframe
         # poses before tracking this frame.
         self._apply_pose_updates()
-        return self._drain([self._dispatch(rgb_u8, depth_u16, timestamp, packed, 0)], t0)[0]
+        return self._drain([self._dispatch(rgb_u8, depth_u16, timestamp, packed, 0)])[0]
 
     def _ring_slot(self, slot: int) -> torch.Tensor:
         """Slot ``slot`` of the retire ring, which grows to hold it."""
@@ -204,32 +229,44 @@ class SlamSystem:
         the frame's input keyframe goes into ring slot ``slot``: if this
         frame's result later shows a switch, the retiring keyframe is
         finalized from there."""
-        res_vec, self._kf_state, self._motion = self._step(packed, self._kf_state, self._motion)
-        retired = self._ring_slot(slot)
-        retired.copy_(self._step.retired)
+        fl = self._flights
+        with fl.dispatch:
+            fl.frame_begin()
+            res_vec, self._kf_state, self._motion = self._step(packed, self._kf_state,
+                                                               self._motion)
+            retired = self._ring_slot(slot)
+            retired.copy_(self._step.retired)
+            fl.frame_end()
         return {"rgb": rgb_u8, "depth": depth_u16, "t": timestamp, "packed": packed,
                 "retired": retired, "res_vec": res_vec}
 
-    def _drain(self, pending: List[dict], t0: float) -> List[np.ndarray]:
+    def _drain(self, pending: List[dict]) -> List[np.ndarray]:
         """Read one flight's result vectors back in one read, then handle
-        its frames in order. A frame that relocalizes resets the state: the
-        rest of the flight, computed against the old state, is discarded
-        and replayed frame by frame against the new one. Every frame's
-        ``ms`` is the flight's wall time from ``t0`` over its frames."""
+        its frames in order, and close the flight. A frame that relocalizes
+        resets the state: the rest of the flight, computed against the old
+        state, is discarded and replayed frame by frame against the new one.
+        Every frame's ``ms`` is the flight's wall time (its span,
+        ``rgbid.flight``) over its frames."""
+        fl = self._flights
         levels = self.config.tracking.levels
-        stacked = self._step.read(torch.stack([rec["res_vec"] for rec in pending]))
+        with fl.wait:
+            fl.settle()  # the pairs the card has finished, while it finishes the rest
+            stacked = self._step.read(torch.stack([rec["res_vec"] for rec in pending]))
         poses = []
         for i, rec in enumerate(pending):
-            T_wc, relocalized = self._handle(rec, StepResult.unpack(stacked[i], levels))
+            with fl.handle:
+                T_wc, relocalized = self._handle(rec, StepResult.unpack(stacked[i], levels))
             poses.append(T_wc)
             if relocalized and i + 1 < len(pending):
                 for j, rec2 in enumerate(pending[i + 1:], i + 1):
                     self._apply_pose_updates()
                     rec3 = self._dispatch(rec2["rgb"], rec2["depth"], rec2["t"], rec2["packed"], j)
-                    res3 = StepResult.unpack(self._step.read(rec3["res_vec"]), levels)
-                    poses.append(self._handle(rec3, res3)[0])
+                    with fl.wait:
+                        vec = self._step.read(rec3["res_vec"])
+                    with fl.handle:
+                        poses.append(self._handle(rec3, StepResult.unpack(vec, levels))[0])
                 break
-        ms = round((time.perf_counter() - t0) * 1e3 / len(poses), 2)
+        ms = round(fl.close(len(poses)) * 1e-6 / len(poses), 2)
         for rec_stat in self.stats[-len(poses):]:
             rec_stat["ms"] = ms
         return poses
@@ -426,28 +463,30 @@ class SlamSystem:
         only. The results equal those of a ``process_frame`` loop whenever
         no update lands mid-run."""
         depth_k = max(int(flight_depth or self.config.pipeline_depth), 1)
+        fl = self._flights
         poses: List[np.ndarray] = []
         pending: List[dict] = []
-        t0 = 0.0
         for f in frames:
             if hasattr(f, "rgb"):
                 rgb, depth, t = f.rgb, f.depth, f.timestamp
             else:
                 rgb, depth, t = f
-            if not pending:
-                t0 = time.perf_counter()
-            packed = self._upload(pack_frame(rgb, depth, self.config))
             if self._kf_state is None:
-                poses.append(self.process_frame(rgb, depth, t, packed=packed))
+                poses.append(self.process_frame(rgb, depth, t))
                 continue
+            if not pending:
+                fl.open(self._frame_count)
+            with fl.pack:
+                packed = pack_frame(rgb, depth, self.config)
+            packed = self._upload(packed)
             if not pending:
                 self._apply_pose_updates()
             pending.append(self._dispatch(rgb, depth, t, packed, len(pending)))
             if len(pending) >= depth_k:
-                poses.extend(self._drain(pending, t0))
+                poses.extend(self._drain(pending))
                 pending = []
         if pending:
-            poses.extend(self._drain(pending, t0))
+            poses.extend(self._drain(pending))
         return poses
 
     def reset(self) -> None:
@@ -467,6 +506,7 @@ class SlamSystem:
         # activity: tags the NEXT odometry edge as episode-contaminated.
         self._episode_since_switch = False
         self.stats: List[dict] = []
+        self._flights = profiling.FlightRecorder(self.device)
         self.backend = BackendThread(self) if self.config.backend.enabled else None
 
     def finish(self) -> None:

@@ -296,6 +296,13 @@ def test_relocalization_in_flight_replays_the_rest(rigid_clip):
     # One read for the first flight, one per replayed frame, one for the
     # second flight.
     assert flight._step.host_reads == 1 + 3 + 1
+    # The flight log counts each frame once: the replayed frames add their
+    # dispatches, reads and handling to their flight's row.
+    rows = flight.flights()
+    assert list(rows["frames"]) == [1, 8, 5]
+    assert list(rows["dispatch_n"]) == [1, 8 + 3, 5]
+    assert list(rows["wait_n"]) == [0, 1 + 3, 1]
+    assert list(rows["handle_n"]) == [1, 8, 5]
 
 
 # ---------------------------------------------------------------------------
