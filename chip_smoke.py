@@ -165,7 +165,8 @@ otherwise. Phases, each printing its own lines:
    the knobs, and run-to-run bit-identity. Then the gauntlet's
    kinect_sensor at VGA under the preset's flips. [knobs]: ms/frame of
    SlamConfig(), each knob alone and the preset, in alternating rounds.
-   [codecs]: bytes, pack_frame's host ms, the upload's host ms and the
+   [codecs]: bytes, pack_frame's host us in its native pass and on its
+   numpy path (bytes equal, both counters), the upload's host ms and the
    host-to-device copy's device ms per codec.
 
 13. [tum]: the rigid sequence written as a TUM RGB-D directory with the
@@ -243,7 +244,7 @@ import torch
 from scipy import ndimage
 
 import rgbid_tpu_torch as port
-from rgbid_tpu_torch import cli
+from rgbid_tpu_torch import cli, native
 from rgbid_tpu_torch.core import se3
 from rgbid_tpu_torch.core.camera import TUM_FR1, Intrinsics
 from rgbid_tpu_torch.backend import orb
@@ -3680,22 +3681,39 @@ CODECS = ("u16", "u12", "u16h")
 
 def phase_codecs():
     """Per upload codec on the rigid sequence: the packed bytes per frame,
-    the host ms of ``pack_frame``, the host ms of ``SlamSystem._upload``
+    the host ms of ``pack_frame`` in its native pass and on its numpy path
+    (``native.toolchain`` set to None for the second) side by side, bytes
+    equal, with the two counters, the host ms of ``SlamSystem._upload``
     (pin and enqueue), and the device time of the host-to-device copy (CUDA
     events around the copy of an already pinned buffer). Returns the
-    packed first frames, for ``phase_decode_kernels``."""
+    packed first frames, for ``phase_decode_kernels``, and whether every
+    native frame equalled its numpy twin and counted as native."""
     frames, _ = make_sequence()
-    first = {}
+    first, ok = {}, True
     for codec in CODECS:
         cfg = default_config().override(depth_codec=codec)
         slam = port.SlamSystem(TUM_FR1, cfg, device="cuda")
-        pack_ms, up_ms, h2d_ms = [], [], []
+        pack_ms, numpy_ms, up_ms, h2d_ms = [], [], [], []
         packed = []
+        n0, m0 = pack_frame.native_calls, pack_frame.numpy_calls
         for rgb, depth, _ in frames:
             t0 = time.perf_counter()
             p = pack_frame(rgb, depth, cfg)
             pack_ms.append((time.perf_counter() - t0) * 1e3)
             packed.append(p)
+        toolchain, native.toolchain = native.toolchain, lambda: None
+        try:
+            same = True
+            for (rgb, depth, _), p in zip(frames, packed):
+                t0 = time.perf_counter()
+                q = pack_frame(rgb, depth, cfg)
+                numpy_ms.append((time.perf_counter() - t0) * 1e3)
+                same &= bool(np.array_equal(p, q))
+        finally:
+            native.toolchain = toolchain
+        counts = (pack_frame.native_calls - n0, pack_frame.numpy_calls - m0)
+        good = same and counts == (len(frames), len(frames))
+        ok &= good
         for p in packed:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3711,10 +3729,13 @@ def phase_codecs():
             h2d_ms.append(a.elapsed_time(b))
         first[codec] = packed[0]
         print(f"[codecs] {codec}: {packed[0].nbytes} B per frame {tuple(packed[0].shape)}, "
-              f"pack_frame host ms median {np.median(pack_ms):.3f}, _upload host ms median "
+              f"pack_frame host us median native {np.median(pack_ms) * 1e3:.1f} / numpy "
+              f"{np.median(numpy_ms) * 1e3:.1f} (bytes equal {same}; native_calls "
+              f"+{counts[0]}, numpy_calls +{counts[1]} over {len(frames)} frames each) "
+              f"{'OK' if good else 'FAIL'}, _upload host ms median "
               f"{np.median(up_ms):.3f}, H2D copy device ms median {np.median(h2d_ms):.4f} "
               f"({packed[0].nbytes / np.median(h2d_ms) / 1e6:.2f} GB/s)")
-    return first
+    return first, ok
 
 
 def phase_decode_kernels(first):
@@ -4578,7 +4599,8 @@ def main() -> int:
     for k in COUNTERS:
         total[k] += p_launches[k]
     phase_knob_times()
-    first_packed = phase_codecs()
+    first_packed, c_ok = phase_codecs()
+    m_ok &= c_ok
     print(f"[main] ms/frame median in this call: " + ", ".join(
         f"{k} {v:.2f}" for k, v in median.items()) + f"; IC exact - IC lagged "
           f"{median['ic exact'] - median['ic lagged']:+.2f}, default - consensus off "

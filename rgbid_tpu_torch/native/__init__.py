@@ -3,9 +3,10 @@
 The port's counterpart of ``rgbid_tpu/native/__init__.py``: pose-graph
 normal-system assembly (the O(E) small-matrix loop) and batched Hamming
 descriptor distances, from ``pose_graph.cpp`` (a copy of the JAX package's
-source), and PNG row unfiltering from ``png_unfilter.cpp`` (the port's
-own). The numpy implementations stay as oracles
-(backend/pose_graph.py, backend/place_recognition.py, datasets/png.py).
+source), PNG row unfiltering from ``png_unfilter.cpp`` and the frame's
+host packing from ``pack_frame.cpp`` (the port's own). The numpy
+implementations stay as oracles (backend/pose_graph.py,
+backend/place_recognition.py, datasets/png.py, tracking/step.py).
 
 The shared library is built with ``g++`` at first use, never at import,
 into ``build/rgbid_tpu_torch/`` at the repository root (the directory of
@@ -14,14 +15,16 @@ nothing is written next to the source. One rule decides who uses it:
 ``toolchain()`` is the path of ``g++`` or None. With a toolchain the
 wrappers build and load the library, and a build or load that fails
 raises ``RuntimeError``; there is no quiet fall back to numpy. Without one
-the wrappers raise, and ``place_recognition.hamming_distances`` and
-``png.unfilter`` (the callers with a numpy twin on their path) take numpy
-because ``toolchain()`` is None.
+the wrappers raise, and ``place_recognition.hamming_distances``,
+``png.unfilter`` and ``step.pack_frame`` / ``step.gray_from_rgb`` (the
+callers with a numpy twin on their path) take numpy because
+``toolchain()`` is None.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,7 +35,8 @@ from pathlib import Path
 
 import numpy as np
 
-_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("pose_graph.cpp", "png_unfilter.cpp"))
+_SOURCES = tuple(Path(__file__).resolve().parent / f
+                 for f in ("pose_graph.cpp", "png_unfilter.cpp", "pack_frame.cpp"))
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rgbid_tpu_torch"
 # No -march=native: a build directory copied to another machine must still load.
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
@@ -41,8 +45,11 @@ _lock = threading.Lock()
 _lib = None
 
 
+@functools.cache
 def toolchain():
-    """Path of the C++ compiler the library is built with, or None."""
+    """Path of the C++ compiler the library is built with, or None. Looked
+    up once a process: ``pack_frame`` asks on every frame, and a PATH
+    search costs tens of microseconds."""
     return shutil.which("g++")
 
 
@@ -101,6 +108,12 @@ def load():
         lib.hamming_batch.argtypes = [pu8, i, pu8, i, i, pi]
         lib.png_unfilter.restype = i
         lib.png_unfilter.argtypes = [pu8, i, i, i, pu8]
+        vp = ctypes.c_void_p
+        z = ctypes.c_ssize_t
+        lib.pack_gray.restype = None
+        lib.pack_gray.argtypes = [vp, z, z, z, i, i, i, vp, z]
+        lib.pack_u16.restype = None
+        lib.pack_u16.argtypes = [vp, z, z, z, i, vp, z, z, i, i, vp]
         _lib = lib
         return _lib
 
@@ -194,4 +207,44 @@ def png_unfilter(raw: np.ndarray, stride: int, bpp: int) -> np.ndarray:
     bad = lib.png_unfilter(raw.reshape(-1), h, stride, bpp, out.reshape(-1))
     if bad:
         raise ValueError(f"row {bad - 1} has filter type {raw[bad - 1, 0]} (0-4 allowed)")
+    return out
+
+
+def _frame_args(frame: np.ndarray) -> tuple:
+    """(address, row, pixel and channel strides in bytes, channels) of a
+    uint8 (h, w) gray or (h, w, >= 3) colour frame, as ``pack_frame.cpp``
+    reads it; 1 channel is copied, 3 give the luma."""
+    if frame.dtype != np.uint8 or not (frame.ndim == 2 or (frame.ndim == 3 and frame.shape[2] >= 3)):
+        raise ValueError(f"expected a uint8 (h, w) or (h, w, >= 3) frame, got {frame.dtype} "
+                         f"{frame.shape}")
+    rs, ps = frame.strides[:2]
+    if frame.ndim == 2:
+        return frame.ctypes.data, rs, ps, 0, 1
+    return frame.ctypes.data, rs, ps, frame.strides[2], 3
+
+
+def pack_gray(frame: np.ndarray, out: np.ndarray) -> None:
+    """Write the gray of ``frame`` (``_frame_args``; its luma, or itself if
+    gray) into ``out``, a uint8 (h, w) array of unit pixel stride whose rows
+    may lie apart (the u12 codec's gray columns)."""
+    lib = load()
+    h, w = out.shape
+    if (frame.shape[:2] != (h, w) or out.dtype != np.uint8 or (w > 1 and out.strides[1] != 1)
+            or not out.flags.writeable):
+        raise ValueError(f"frame {frame.shape} and gray {out.dtype} {out.shape} / "
+                         f"{out.strides} (writeable {out.flags.writeable}) do not match")
+    lib.pack_gray(*_frame_args(frame), h, w, out.ctypes.data, out.strides[0])
+
+
+def pack_u16(frame: np.ndarray, depth: np.ndarray) -> np.ndarray:
+    """The "u16" codec's (3, h, w) buffer [gray, depth low byte, depth high
+    byte] in one pass: ``frame`` as ``pack_gray`` takes it, ``depth`` an
+    (h, w) array of 2-byte items, its bytes in memory order."""
+    lib = load()
+    h, w = depth.shape
+    if frame.shape[:2] != (h, w) or depth.dtype.itemsize != 2:
+        raise ValueError(f"frame {frame.shape} and depth {depth.dtype} {depth.shape} do not "
+                         f"match: the depth needs (h, w) 2-byte items")
+    out = np.empty((3, h, w), np.uint8)
+    lib.pack_u16(*_frame_args(frame), depth.ctypes.data, *depth.strides, h, w, out.ctypes.data)
     return out

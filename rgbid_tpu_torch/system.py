@@ -24,10 +24,12 @@ end hands it every ``viz.every_n`` frames, made from host data only.
 
 The host path is timed in spans (``utils/profiling.py``): ``rgbid.flight``
 around each flight, ``rgbid.pack``, ``rgbid.upload`` and ``rgbid.dispatch``
-around each frame's packing, upload and dispatch, ``rgbid.wait`` around the
-flight's read and ``rgbid.handle`` around each frame's bookkeeping. Each
-flight is one row of the process-wide flight log (``flights()``), with the
-card's busy time from one pair of CUDA timing events a frame. Under
+around each frame's packing (``pack_frame``: the gray and the depth codec in
+one native pass over the pixels on the host), upload and dispatch,
+``rgbid.wait`` around the flight's read and ``rgbid.handle`` around each
+frame's bookkeeping. Each flight is one row of the process-wide flight log
+(``flights()``), with the card's busy time from one pair of CUDA timing
+events a frame. Under
 ``torch.profiler`` the spans name the host's part of the card's timeline.
 """
 

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..core import se3
 from ..core.camera import Intrinsics, level_intrinsics
 from ..mapping.fusion import fuse_frame
@@ -112,17 +113,50 @@ class StepResult(NamedTuple):
         return cls(*out)
 
 
-def gray_from_rgb(rgb_u8: np.ndarray) -> np.ndarray:
-    """BT.601 luma in 15-bit fixed point, rounded: (9798 R + 19235 G +
-    3735 B + 16384) >> 15. This is OpenCV's ``cvtColor(RGB2GRAY)`` for u8
-    (checked equal on all 256^3 colours against OpenCV 5.0.0), which the
-    JAX package calls; a 2-D input is already gray."""
+def _native_frame(rgb_u8, shape: Optional[Tuple[int, int]] = None):
+    """``rgb_u8`` as the native pass reads it (broadcast to ``shape``, the
+    (h, w) of the frame's depth, as numpy's assignment broadcasts), or None
+    where numpy's code runs: without a toolchain (``native.toolchain()``),
+    and for what the native pass does not take (another dtype than uint8;
+    not (h, w) or (h, w, >= 3)), where numpy's result or error is the
+    answer."""
+    if native.toolchain() is None or not isinstance(rgb_u8, np.ndarray):
+        return None
+    if rgb_u8.dtype != np.uint8 or not (
+            rgb_u8.ndim == 2 or (rgb_u8.ndim == 3 and rgb_u8.shape[2] >= 3)):
+        return None
+    if shape is None or rgb_u8.shape[:2] == shape:
+        return rgb_u8
+    return np.broadcast_to(rgb_u8, shape + rgb_u8.shape[2:])
+
+
+def gray_from_rgb_numpy(rgb_u8: np.ndarray) -> np.ndarray:
+    """``gray_from_rgb`` in numpy: the oracle of the native pass, and the
+    path where there is no toolchain."""
     if rgb_u8.ndim == 2:
         return rgb_u8
     c = rgb_u8.astype(np.uint32)
     return ((9798 * c[..., 0] + 19235 * c[..., 1] + 3735 * c[..., 2] + 16384) >> 15).astype(
         np.uint8
     )
+
+
+def gray_from_rgb(rgb_u8: np.ndarray) -> np.ndarray:
+    """BT.601 luma in 15-bit fixed point, rounded: (9798 R + 19235 G +
+    3735 B + 16384) >> 15. This is OpenCV's ``cvtColor(RGB2GRAY)`` for u8
+    (checked equal on all 256^3 colours against OpenCV 5.0.0), which the
+    JAX package calls; a 2-D input is already gray and is returned as it
+    is. One native pass over the pixels (``native/pack_frame.cpp``) where
+    there is a toolchain, else ``gray_from_rgb_numpy``; the bytes are the
+    same."""
+    if rgb_u8.ndim == 2:
+        return rgb_u8
+    frame = _native_frame(rgb_u8)
+    if frame is None:
+        return gray_from_rgb_numpy(rgb_u8)
+    out = np.empty(frame.shape[:2], np.uint8)
+    native.pack_gray(frame, out)
+    return out
 
 
 _U12_LUTS: dict = {}
@@ -161,13 +195,28 @@ def pack_frame(rgb_u8: np.ndarray, depth_u16: np.ndarray, cfg=None) -> np.ndarra
       stride 2 (real sensor values, no averaging) as its bytes; H and W
       even. The device rebuilds full-resolution inverse depth with
       ``image.upsample2x_renorm``.
+
+    The gray (``gray_from_rgb``) is one native pass over the pixels
+    (``native/pack_frame.cpp``) where there is a toolchain, written straight
+    into the codec's gray rows; under "u16" the same pass writes the depth's
+    two byte planes. The u12 and u16h depth parts are numpy. Without a
+    toolchain, or for an input the native pass does not take
+    (``_native_frame``), all of it is numpy; the bytes are the same.
+    ``pack_frame.native_calls`` and ``pack_frame.numpy_calls`` count the
+    frames packed each way.
     """
     h, w = depth_u16.shape
-    gray = gray_from_rgb(rgb_u8)
     codec = "u16" if cfg is None else cfg.depth_codec
+    if codec == "u12" and w % 2:
+        raise ValueError(f"depth_codec='u12' needs an even width, got {w}")
+    if codec == "u16h" and (h % 2 or w % 2):
+        raise ValueError(f"depth_codec='u16h' needs an even height and width, got {h}x{w}")
+    frame = _native_frame(rgb_u8, (h, w))
+    if frame is not None and codec == "u16":
+        out = native.pack_u16(frame, depth_u16)
+        pack_frame.native_calls += 1
+        return out
     if codec == "u12":
-        if w % 2:
-            raise ValueError(f"depth_codec='u12' needs an even width, got {w}")
         code = _u12_lut(cfg.depth_scale, cfg.min_depth, cfg.max_depth)[depth_u16]
         v = code.reshape(h, w // 2, 2)
         v0, v1 = v[..., 0], v[..., 1]
@@ -176,22 +225,29 @@ def pack_frame(rgb_u8: np.ndarray, depth_u16: np.ndarray, cfg=None) -> np.ndarra
         trip[..., 1] = ((v0 & 0xF) << 4) | (v1 >> 8)
         trip[..., 2] = v1 & 0xFF
         out = np.empty((h, w + (3 * w) // 2), np.uint8)
-        out[:, :w] = gray
         out[:, w:] = trip.reshape(h, (3 * w) // 2)
-        return out
-    if codec == "u16h":
-        if h % 2 or w % 2:
-            raise ValueError(f"depth_codec='u16h' needs an even height and width, got {h}x{w}")
+        gray = out[:, :w]
+    elif codec == "u16h":
         out = np.empty((h + h // 2, w), np.uint8)
-        out[:h] = gray
         out[h:] = np.ascontiguousarray(depth_u16[::2, ::2]).view(np.uint8).reshape(h // 2, w)
-        return out
-    d8 = np.ascontiguousarray(depth_u16).view(np.uint8).reshape(h, w, 2)
-    out = np.empty((3, h, w), np.uint8)
-    out[0] = gray
-    out[1] = d8[..., 0]
-    out[2] = d8[..., 1]
+        gray = out[:h]
+    else:
+        d8 = np.ascontiguousarray(depth_u16).view(np.uint8).reshape(h, w, 2)
+        out = np.empty((3, h, w), np.uint8)
+        out[1] = d8[..., 0]
+        out[2] = d8[..., 1]
+        gray = out[0]
+    if frame is None:
+        gray[...] = gray_from_rgb_numpy(rgb_u8)
+        pack_frame.numpy_calls += 1
+    else:
+        native.pack_gray(frame, gray)
+        pack_frame.native_calls += 1
     return out
+
+
+pack_frame.native_calls = 0
+pack_frame.numpy_calls = 0
 
 
 def check_packed_shape(shape: tuple, cfg) -> None:

@@ -24,7 +24,9 @@ holds:
 - ``rgbid.flight``: from the flight's first ``pack_frame`` to the end of
   its last ``_handle`` (``wall_ns``; ``start_ns`` on the wall clock of
   ``time.time_ns``, the profiler's, so a row can be laid over a trace);
-- ``rgbid.pack``: ``pack_frame``, the gray and depth codec in host numpy;
+- ``rgbid.pack``: ``pack_frame``, the gray and depth codec on the host,
+  one native pass over the pixels (``native/pack_frame.cpp``; numpy
+  without a toolchain);
 - ``rgbid.upload``: ``_upload``: ``from_numpy``, ``pin_memory``, the
   host-to-device copy's enqueue;
 - ``rgbid.dispatch``: ``_dispatch``: the step graph's input copies, its
